@@ -1,0 +1,56 @@
+"""KV caches of the attention families.
+
+A cache is ``{"k": [L tensors], "v": [L tensors]}``, one ``[B, S, KV, hd]``
+tensor per attention layer: the JAX package's layout per layer (it stacks
+them ``[L, ...]`` for its layer scan; a Python loop over layers has no use
+for the stack).  ``cache_len`` travels separately as a host int.
+"""
+from __future__ import annotations
+
+from typing import Dict, List
+
+import torch
+
+from repro_torch.configs.base import ArchConfig
+
+Cache = Dict[str, List[torch.Tensor]]
+
+
+def num_attn_applications(arch: ArchConfig) -> int:
+    """How many attention layers need a KV cache."""
+    if arch.family == "ssm":
+        return 0
+    if arch.family == "hybrid":
+        ae = arch.hybrid.attn_every
+        return -(-arch.num_layers // ae)  # ceil
+    return arch.num_layers
+
+
+def init_cache(arch: ArchConfig, batch: int, max_seq: int,
+               dtype: torch.dtype, device: torch.device) -> Cache:
+    """Zeroed caches for ``batch`` sequences of up to ``max_seq`` tokens."""
+    if arch.ssm is not None:
+        raise NotImplementedError(
+            f"{arch.name}: SSM state caches are not ported yet (ROADMAP "
+            f"queue 1, next item 3)")
+    shape = (batch, max_seq, arch.num_kv_heads, arch.head_dim)
+    n = num_attn_applications(arch)
+    return {name: [torch.zeros(shape, dtype=dtype, device=device)
+                   for _ in range(n)] for name in ("k", "v")}
+
+
+def cache_bytes(arch: ArchConfig, batch: int, max_seq: int,
+                dtype_bytes: int = 2) -> int:
+    """Closed-form cache footprint (the formula of ``repro.models.kvcache``)."""
+    total = 0
+    n_attn = num_attn_applications(arch)
+    if n_attn:
+        total += (2 * n_attn * batch * max_seq * arch.num_kv_heads
+                  * arch.head_dim * dtype_bytes)
+    if arch.ssm is not None:
+        s = arch.ssm
+        nh, hd = s.num_heads(arch.d_model), s.head_dim
+        total += arch.num_layers * batch * nh * hd * s.d_state * 4  # fp32
+        total += arch.num_layers * batch * (s.conv_width - 1) * (
+            nh * hd + 2 * s.d_state) * dtype_bytes
+    return total

@@ -1,0 +1,72 @@
+"""Dense layers shared by the dense-family architectures.
+
+PyTorch counterparts of ``repro.models.layers``: weights keep the JAX
+package's unflattened layouts (``[d, H, hd]`` projections) and norm,
+rotary and logit math runs in fp32 whatever the parameter dtype.
+Attention itself lives in ``repro_torch.kernels``.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+
+def rms_norm(x: torch.Tensor, weight: torch.Tensor,
+             eps: float = 1e-5) -> torch.Tensor:
+    """RMSNorm scaled by ``(1 + weight)`` (weights are zero-initialised)."""
+    xf = x.float()
+    xf = xf * torch.rsqrt(xf.square().mean(-1, keepdim=True) + eps)
+    return (xf * (1.0 + weight.float())).to(x.dtype)
+
+
+def rope_frequencies(head_dim: int, theta: float,
+                     device: torch.device) -> torch.Tensor:
+    """[head_dim // 2] inverse frequencies (fp32)."""
+    exponent = torch.arange(0, head_dim, 2, dtype=torch.float32,
+                            device=device) / head_dim
+    return 1.0 / (theta ** exponent)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float) -> torch.Tensor:
+    """x: [B, S, H, hd]; positions: [B, S].  Split-half convention: the
+    first half of each head pairs with the second half."""
+    inv_freq = rope_frequencies(x.shape[-1], theta, x.device)
+    angles = positions.float()[..., None] * inv_freq       # [B, S, hd/2]
+    cos = torch.cos(angles)[:, :, None, :]
+    sin = torch.sin(angles)[:, :, None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def repeat_kv(x: torch.Tensor, q_per_kv: int) -> torch.Tensor:
+    """[B, S, KV, hd] -> [B, S, KV*q_per_kv, hd] by repeating each kv head."""
+    if q_per_kv == 1:
+        return x
+    return x.repeat_interleave(q_per_kv, dim=2)
+
+
+def gated_mlp(x: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor,
+              wd: torch.Tensor, activation: str) -> torch.Tensor:
+    """SwiGLU / GeGLU: (act(x@wg) * (x@wu)) @ wd; GeGLU's gelu is the tanh
+    approximation, as ``jax.nn.gelu(approximate=True)``."""
+    g = x @ wg
+    u = x @ wu
+    if activation == "silu":
+        g = F.silu(g)
+    elif activation == "gelu":
+        g = F.gelu(g, approximate="tanh")
+    else:
+        raise ValueError(f"unknown activation {activation!r}")
+    return (g * u) @ wd
+
+
+def embed(tokens: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    return table[tokens]
+
+
+def logits(x: torch.Tensor, head: torch.Tensor) -> torch.Tensor:
+    """[B,S,d] @ [d,V] -> fp32 logits.  The products of two bf16 values are
+    exact in fp32, so this equals an fp32-accumulated bf16 product."""
+    return x.float() @ head.float()
