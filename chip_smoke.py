@@ -9,32 +9,52 @@ Phases, each printing one JSON line; any failure exits non-zero:
 2. build   -- nvcc builds every kernel source of the port, one process per
               source, all started together; ptxas' registers, shared memory
               and spills per kernel.
-3. kernels -- each kernel against its plain PyTorch version on the card
-              over a sweep of head dims, GQA groups, dtypes, causal flags
-              and ragged lengths, including the qwen2-7b serving shapes;
-              at those shapes the kernel, plain and library times (CUDA
-              events, L2 flushed before each launch) and the roofline bound.
-4. model   -- full-width qwen2-7b in bf16 (random weights from a seeded
-              generator): prefill logits through the kernels against the
-              same model's plain attention; then, at full widths but 2
-              layers in fp32, identical greedy tokens from both paths.
-5. serve   -- the main path: 8 requests (prompt lengths 256-512 drawn from
-              --seed, 16 new tokens each) through Batcher -> Engine on
-              full-width qwen2-7b, with the kernels' launch counts set to 0
-              just before and checked just after (28 layers: one flash
-              launch per layer per prefill, one decode launch per layer per
-              decode step).
-6. profile -- prefill and decode-step times at the serve batch's padded
-              shape on the host clock, then under torch.profiler: device
-              time by kernel and the device's idle share in each.
+3. kernels -- each kernel against its plain PyTorch version on the card:
+              attention over a sweep of head dims (64, 112, 128, 256), GQA
+              groups, dtypes, causal flags and ragged lengths; the SSD scan
+              against its dual form, its sequential recurrence and that
+              recurrence in float64 over head dims, state dims, ragged
+              lengths, batches, with and without an initial state, both
+              ranges of A (around -1; -1 to -16 as the models set it), and
+              split in two with the state carried; then at the serving
+              shapes of qwen2-7b, zamba2-7b and mamba2-130m the kernel,
+              plain and library times (CUDA events, L2 flushed before each
+              launch) and the roofline bound.
+4. model   -- full-width qwen2-7b and zamba2-7b in bf16 (random weights
+              from a seeded generator): a prefill through the kernels with
+              every kernel call also held against its plain version on the
+              same inputs and every SSD call against the recurrence in
+              float64; its logits against the same model on the plain
+              versions, with control readings (one wrong call; the SSD's
+              chunk halved, which changes only the rounding); then, at full
+              widths but 2 (qwen2) or 7 (zamba2: one group of 6 and one)
+              layers in fp32, greedy generation through both paths and
+              teacher-forced logits of the kernel path against the plain
+              path in float64.
+5. serve   -- the main path, once per model: 8 requests (prompt lengths
+              256-512 drawn from --seed, 16 new tokens each) through
+              Batcher -> Engine on full-width qwen2-7b, zamba2-7b and
+              mamba2-130m, with the kernels' launch counts set to 0 just
+              before each and checked just after: one flash launch per
+              attention application per prefill, one decode launch per
+              application per decode step, one SSD launch per Mamba2 layer
+              per prefill (qwen2 28/420/0, zamba2 14/210/81, mamba2 0/0/24).
+6. profile -- for each served model, prefill and decode-step times at the
+              serve batch's padded shape on the host clock, then under
+              torch.profiler: device time by kernel and the device's idle
+              share in each.
 
-The second-to-last line is ``{"kernels": [...]}``; the last is
-``{"ok": true, "device": {...}}``.  Exits 2 with no result when there is
-no CUDA device or no ``src/repro_torch`` beside this script.
+The second-to-last line is ``{"kernels": [...]}``, one row per kernel at
+its main serving shape, ``launches`` from the serve run of the model whose
+shape the row names (``launches_by_model`` gives all three); the last is
+``{"ok": true, "device": {...}}``.  Exits 2 with no result when
+there is no CUDA device or no ``src/repro_torch`` beside this script.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
+import itertools
 import json
 import subprocess
 import sys
@@ -49,9 +69,17 @@ PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 PEAK_BYTES_S = 3.35e12
 TOLS = {"float32": 2e-5, "bfloat16": 2e-2}   # tests/test_kernels.py:14-15
 
-QWEN = "qwen2-7b"
+QWEN, ZAMBA, MAMBA = "qwen2-7b", "zamba2-7b", "mamba2-130m"
 SERVE_BATCH, SERVE_MAX_SEQ, SERVE_NEW = 8, 1024, 16
 PROMPT_LENS = (256, 512)
+SSD_TOL = 2e-3                               # tests/test_kernels.py:74-77
+# The SSD's y and final state against its recurrence in float64: max |error|
+# over the largest |value|.  An fp32 recurrence reads ~1e-7, a dual form
+# whose cumulative decay is summed in fp32 ~1e-5.
+SSD_F64_TOL = 2e-6
+LOGITS_TOL = 2e-2            # full-model prefill logits, kernel vs plain
+FP32_LOGITS_TOL = 1e-3       # fp32 at a few layers, kernel vs float64
+KERNELS = ("flash_attention", "decode_attention", "ssd_scan")
 
 
 def emit(phase: str, **fields) -> None:
@@ -91,6 +119,12 @@ def _max_err(torch, out, want, tol: float):
     ok = bool(torch.isfinite(o).all()) and bool(
         (err <= tol + tol * w.abs()).all())
     return float(err.max()), ok
+
+
+def _rel_errs(got, exact) -> list:
+    """Per tensor, max |got - exact| over max |exact| (exact in float64)."""
+    return [float((g.double() - e).abs().max() / e.abs().max())
+            for g, e in zip(got, exact)]
 
 
 def _time_ms(torch, fn, flush, iters: int = 20) -> float:
@@ -135,26 +169,64 @@ def _bound(flop: float, nbytes: float, dtype: str):
     return max(t_ops, t_bytes), ("operations" if t_ops > t_bytes else "bytes")
 
 
+def _ssd_flop_bytes(B, S, nh, hd, ds, with_init: bool):
+    """The least FLOP that computes the SSD scan of these S rows, and the
+    bytes that must move: x, dt, B, C (read once for all heads), y, the
+    final state and the initial one, all fp32.  The FLOP are the smaller of
+    the exact recurrence's (5 hd ds a row: the decay, the rank-1 update,
+    y = state . C) and the dual form's at the kernel's chunks counted over
+    the causal triangles only (C B^T and (L o .)(x dt) over r(r+1)/2 pairs,
+    the entering state's C state^T and the state update)."""
+    from repro_torch.kernels.ssd_scan import CHUNK
+    dual = 0
+    for c0 in range(0, S, CHUNK):
+        r = min(CHUNK, S - c0)
+        pairs = r * (r + 1) // 2
+        dual += 2 * pairs * (ds + hd) + 4 * r * ds * hd
+    flop = B * nh * min(dual, 5 * hd * ds * S)
+    nbytes = 4.0 * (2 * B * S * nh * hd + B * S * nh + nh + 2 * B * S * ds
+                    + (2 if with_init else 1) * B * nh * hd * ds)
+    return float(flop), nbytes
+
+
 def phase_kernels(torch, card) -> list:
     import torch.nn.functional as F
     from repro_torch.kernels import ref
     from repro_torch.kernels.decode_attention import decode_attention
     from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.ssd_scan import ssd_scan
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
 
-    def randn(*shape, dtype):
+    def randn(*shape, dtype=torch.float32):
         return torch.randn(shape, generator=gen, device=dev).to(dtype)
 
+    def ssd_inputs(B, S, nh, hd, ds, decay="model"):
+        """x, dt (softplus'd), A (< 0), B, C, fp32.  ``decay="model"``: A
+        from -1 to -16 over the heads, as the models' ``A_log`` sets it;
+        ``"unit"``: A = -exp(N(0, 1/4)), around -1."""
+        A = (-torch.linspace(1.0, 16.0, nh, device=dev) if decay == "model"
+             else -torch.exp(randn(nh) * 0.5))
+        return (randn(B, S, nh, hd), F.softplus(randn(B, S, nh)), A,
+                randn(B, S, ds), randn(B, S, ds))
+
     dtypes = {"float32": torch.float32, "bfloat16": torch.bfloat16}
-    failures, n_cases = [], 0
-    worst = {"flash_attention": 0.0, "decode_attention": 0.0}
+    failures, n_cases, worst_f64 = [], 0, 0.0
+    worst = dict.fromkeys(KERNELS, 0.0)
+
+    def check(kernel, out, want, tol, **case):
+        nonlocal n_cases
+        err, ok = _max_err(torch, out, want, tol)
+        n_cases += 1
+        worst[kernel] = max(worst[kernel], err)
+        if not ok:
+            failures.append(dict(kernel=kernel, err=err, **case))
 
     # flash: hd x G x causal x dtype, cycling through ragged (Sq, Skv)
     seqs = [(500, 500), (64, 192), (37, 37), (200, 333)]
     case = 0
-    for hd in (64, 128, 256):
+    for hd in (64, 112, 128, 256):
         for G in (1, 4, 7, 8):
             for causal in (True, False):
                 for dname, dt in dtypes.items():
@@ -164,18 +236,13 @@ def phase_kernels(torch, card) -> list:
                     q = randn(B, Sq, KV * G, hd, dtype=dt)
                     k = randn(B, Skv, KV, hd, dtype=dt)
                     v = randn(B, Skv, KV, hd, dtype=dt)
-                    out = flash_attention(q, k, v, causal=causal)
-                    want = ref.flash_attention_ref(q, k, v, causal=causal)
-                    err, ok = _max_err(torch, out, want, TOLS[dname])
-                    n_cases += 1
-                    worst["flash_attention"] = max(worst["flash_attention"],
-                                                   err)
-                    if not ok:
-                        failures.append(dict(kernel="flash", hd=hd, G=G,
-                                             causal=causal, dtype=dname,
-                                             Sq=Sq, Skv=Skv, err=err))
+                    check("flash_attention",
+                          flash_attention(q, k, v, causal=causal),
+                          ref.flash_attention_ref(q, k, v, causal=causal),
+                          TOLS[dname], hd=hd, G=G, causal=causal,
+                          dtype=dname, Sq=Sq, Skv=Skv)
     # decode: hd x G x fill x dtype on a ragged cache of 1000 positions
-    for hd in (64, 128, 256):
+    for hd in (64, 112, 128, 256):
         for G in (1, 4, 7, 8):
             for fill in (0.3, 1.0):
                 for dname, dt in dtypes.items():
@@ -184,154 +251,443 @@ def phase_kernels(torch, card) -> list:
                     q = randn(B, 1, KV * G, hd, dtype=dt)
                     kc = randn(B, S, KV, hd, dtype=dt)
                     vc = randn(B, S, KV, hd, dtype=dt)
-                    out = decode_attention(q, kc, vc, cl)
-                    want = ref.decode_attention_ref(q, kc, vc, cl)
-                    err, ok = _max_err(torch, out, want, TOLS[dname])
-                    n_cases += 1
-                    worst["decode_attention"] = max(
-                        worst["decode_attention"], err)
-                    if not ok:
-                        failures.append(dict(kernel="decode", hd=hd, G=G,
-                                             fill=fill, dtype=dname,
-                                             cache_len=cl, err=err))
+                    check("decode_attention", decode_attention(q, kc, vc, cl),
+                          ref.decode_attention_ref(q, kc, vc, cl),
+                          TOLS[dname], hd=hd, G=G, fill=fill, dtype=dname,
+                          cache_len=cl)
+    # ssd: hd x ds x S (ragged and prime included) x B x init state x the
+    # range of A, each against the dual form and the exact recurrence, and
+    # against the recurrence in float64 (SSD_F64_TOL, relative to the
+    # largest value); every case with an init state is also split in two
+    # with the state carried.
+    for hd, ds, S, B, with_init, decay in itertools.product(
+            (64, 16), (64, 128), (64, 128, 474, 37, 257), (1, 8),
+            (False, True), ("unit", "model")):
+        nh = 4
+        x, dt, A, Bm, Cm = ssd_inputs(B, S, nh, hd, ds, decay)
+        s0 = randn(B, nh, hd, ds) if with_init else None
+        y, fin = ssd_scan(x, dt, A, Bm, Cm, init_state=s0)
+        cs = dict(hd=hd, ds=ds, S=S, B=B, init=with_init, decay=decay)
+        for name, plain in (("dual", ref.ssd_scan_ref),
+                            ("recurrence", ref.ssd_ref)):
+            want_y, want_s = plain(x, dt, A, Bm, Cm, init_state=s0)
+            check("ssd_scan", y, want_y, SSD_TOL, part="y", plain=name, **cs)
+            check("ssd_scan", fin, want_s, SSD_TOL, part="state",
+                  plain=name, **cs)
+        exact = ref.ssd_ref(*(t.double() for t in (x, dt, A, Bm, Cm)),
+                            init_state=None if s0 is None else s0.double())
+        for part, err in zip(("y", "state"), _rel_errs((y, fin), exact)):
+            worst_f64 = max(worst_f64, err)
+            if err > SSD_F64_TOL:
+                failures.append(dict(kernel="ssd_scan", vs="float64",
+                                     part=part, rel_err=err, **cs))
+        if with_init:
+            h = S // 2
+            y1, s1 = ssd_scan(x[:, :h], dt[:, :h], A, Bm[:, :h], Cm[:, :h],
+                              init_state=s0)
+            y2, s2 = ssd_scan(x[:, h:], dt[:, h:], A, Bm[:, h:], Cm[:, h:],
+                              init_state=s1)
+            check("ssd_scan", torch.cat([y1, y2], 1), y, SSD_TOL,
+                  part="split y", **cs)
+            check("ssd_scan", s2, fin, SSD_TOL, part="split state", **cs)
     torch.cuda.synchronize()
     emit("kernels_sweep", cases=n_cases, failures=failures,
-         max_abs_err=worst)
+         max_abs_err=worst, ssd_max_rel_err_vs_float64=worst_f64)
     if failures:
         raise AssertionError(f"{len(failures)} kernel cases out of "
                              f"tolerance: {failures[:5]}")
 
-    # the qwen2-7b serving shapes, bf16
     flush = torch.empty(64 << 20, dtype=torch.int8, device=dev)
-    B, S, H, KV, hd = SERVE_BATCH, 512, 28, 4, 128
     bf = torch.bfloat16
-    q, k, v = (randn(B, S, H, hd, dtype=bf), randn(B, S, KV, hd, dtype=bf),
-               randn(B, S, KV, hd, dtype=bf))
-    out = flash_attention(q, k, v, causal=True)
-    err_f, ok_f = _max_err(torch, out, ref.flash_attention_ref(q, k, v),
-                           TOLS["bfloat16"])
-    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-    pairs = S * (S + 1) // 2                  # causal (query, key) pairs
-    flop_f = 4.0 * B * H * hd * pairs
-    bytes_f = 2.0 * (2 * q.numel() + k.numel() + v.numel())
-    bound_f, by_f = _bound(flop_f, bytes_f, "bfloat16")
-    rows = [dict(
-        name="flash_attention", route="cuda",
-        source="src/repro_torch/kernels/csrc/flash_attention.cu",
-        replaces="src/repro/kernels/flash_attention.py:86",
-        shape=f"q [{B},{S},{H},{hd}] k/v [{B},{S},{KV},{hd}] bf16 causal",
-        max_abs_err=max(err_f, worst["flash_attention"]),
-        ms=_time_ms(torch, lambda: flash_attention(q, k, v), flush),
-        plain_ms=_time_ms(torch, lambda: ref.flash_attention_ref(q, k, v),
-                          flush),
-        library_ms=_time_ms(torch, lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True, enable_gqa=True), flush),
-        bound_ms=bound_f, bound_by=by_f)]
+    rows, extra, oks = [], [], {}
 
-    Smax, cl = SERVE_MAX_SEQ, 528
-    q1 = randn(B, 1, H, hd, dtype=bf)
-    kc, vc = randn(B, Smax, KV, hd, dtype=bf), randn(B, Smax, KV, hd, dtype=bf)
-    out = decode_attention(q1, kc, vc, cl)
-    err_d, ok_d = _max_err(torch, out,
-                           ref.decode_attention_ref(q1, kc, vc, cl),
-                           TOLS["bfloat16"])
-    q1t = q1.transpose(1, 2)
-    kct, vct = kc[:, :cl].transpose(1, 2), vc[:, :cl].transpose(1, 2)
-    flop_d = 4.0 * B * H * hd * cl
-    bytes_d = 2.0 * (2 * B * cl * KV * hd + 2 * q1.numel())
-    bound_d, by_d = _bound(flop_d, bytes_d, "bfloat16")
-    rows.append(dict(
-        name="decode_attention", route="cuda",
-        source="src/repro_torch/kernels/csrc/decode_attention.cu",
-        replaces="src/repro/kernels/decode_attention.py:65",
-        shape=f"q [{B},1,{H},{hd}] caches [{B},{Smax},{KV},{hd}] bf16 "
-              f"cache_len {cl}",
-        max_abs_err=max(err_d, worst["decode_attention"]),
-        ms=_time_ms(torch, lambda: decode_attention(q1, kc, vc, cl), flush),
-        plain_ms=_time_ms(
-            torch, lambda: ref.decode_attention_ref(q1, kc, vc, cl), flush),
-        library_ms=_time_ms(torch, lambda: F.scaled_dot_product_attention(
-            q1t, kct, vct, enable_gqa=True), flush),
-        bound_ms=bound_d, bound_by=by_d))
-    emit("kernels_serving_shapes", card=card["nvidia_smi"],
-         rows=rows, ok=[ok_f, ok_d])
-    if not (ok_f and ok_d):
+    def time_row(row, fn, plain, library):
+        row.update(ms=_time_ms(torch, fn, flush),
+                   plain_ms=_time_ms(torch, plain, flush),
+                   library_ms=(None if library is None
+                               else _time_ms(torch, library, flush)))
+        return row
+
+    def flash_at(tag, B, S, H, KV, hd):
+        q, k, v = (randn(B, S, H, hd, dtype=bf), randn(B, S, KV, hd, dtype=bf),
+                   randn(B, S, KV, hd, dtype=bf))
+        err, oks[f"flash {tag}"] = _max_err(
+            torch, flash_attention(q, k, v), ref.flash_attention_ref(q, k, v),
+            TOLS["bfloat16"])
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        pairs = S * (S + 1) // 2                  # causal (query, key) pairs
+        bound, by = _bound(4.0 * B * H * hd * pairs,
+                           2.0 * (2 * q.numel() + k.numel() + v.numel()),
+                           "bfloat16")
+        return time_row(dict(
+            name="flash_attention", route="cuda", model=tag,
+            source="src/repro_torch/kernels/csrc/flash_attention.cu",
+            replaces="src/repro/kernels/flash_attention.py:86",
+            shape=f"{tag}: q [{B},{S},{H},{hd}] k/v [{B},{S},{KV},{hd}] "
+                  f"bf16 causal",
+            max_abs_err=max(err, worst["flash_attention"]),
+            bound_ms=bound, bound_by=by),
+            lambda: flash_attention(q, k, v),
+            lambda: ref.flash_attention_ref(q, k, v),
+            lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True, enable_gqa=True))
+
+    def decode_at(tag, B, H, KV, hd, cl):
+        q1 = randn(B, 1, H, hd, dtype=bf)
+        kc = randn(B, SERVE_MAX_SEQ, KV, hd, dtype=bf)
+        vc = randn(B, SERVE_MAX_SEQ, KV, hd, dtype=bf)
+        err, oks[f"decode {tag}"] = _max_err(
+            torch, decode_attention(q1, kc, vc, cl),
+            ref.decode_attention_ref(q1, kc, vc, cl), TOLS["bfloat16"])
+        q1t = q1.transpose(1, 2)
+        kct, vct = kc[:, :cl].transpose(1, 2), vc[:, :cl].transpose(1, 2)
+        bound, by = _bound(4.0 * B * H * hd * cl,
+                           2.0 * (2 * B * cl * KV * hd + 2 * q1.numel()),
+                           "bfloat16")
+        return time_row(dict(
+            name="decode_attention", route="cuda", model=tag,
+            source="src/repro_torch/kernels/csrc/decode_attention.cu",
+            replaces="src/repro/kernels/decode_attention.py:65",
+            shape=f"{tag}: q [{B},1,{H},{hd}] caches [{B},{SERVE_MAX_SEQ},"
+                  f"{KV},{hd}] bf16 cache_len {cl}",
+            max_abs_err=max(err, worst["decode_attention"]),
+            bound_ms=bound, bound_by=by),
+            lambda: decode_attention(q1, kc, vc, cl),
+            lambda: ref.decode_attention_ref(q1, kc, vc, cl),
+            lambda: F.scaled_dot_product_attention(q1t, kct, vct,
+                                                   enable_gqa=True))
+
+    def ssd_at(tag, B, S, nh, hd, ds, chunk):
+        x, dt, A, Bm, Cm = ssd_inputs(B, S, nh, hd, ds)
+        y, fin = ssd_scan(x, dt, A, Bm, Cm)
+        dual = ref.ssd_scan_ref(x, dt, A, Bm, Cm, chunk=chunk)
+        err = 0.0
+        for name, (want_y, want_s) in (
+                ("dual", dual), ("recurrence", ref.ssd_ref(x, dt, A, Bm, Cm))):
+            e_y, ok_y = _max_err(torch, y, want_y, SSD_TOL)
+            e_s, ok_s = _max_err(torch, fin, want_s, SSD_TOL)
+            oks[f"ssd {tag} vs {name}"] = ok_y and ok_s
+            err = max(err, e_y, e_s)
+        # Both fp32 forms against the recurrence in float64.
+        exact = ref.ssd_ref(*(t.double() for t in (x, dt, A, Bm, Cm)))
+        f64 = {"kernel": _rel_errs((y, fin), exact),
+               "plain": _rel_errs(dual, exact)}
+        oks[f"ssd {tag} vs float64"] = max(f64["kernel"]) <= SSD_F64_TOL
+        bound, by = _bound(*_ssd_flop_bytes(B, S, nh, hd, ds, False),
+                           "float32")
+        return time_row(dict(
+            name="ssd_scan", route="cuda", model=tag,
+            source="src/repro_torch/kernels/csrc/ssd_scan.cu",
+            replaces="src/repro/kernels/ssd_scan.py:78",
+            shape=f"{tag}: x [{B},{S},{nh},{hd}] B/C [{B},{S},{ds}] fp32",
+            max_abs_err=max(err, worst["ssd_scan"]),
+            y_state_rel_err_vs_float64=f64,
+            bound_ms=bound, bound_by=by),
+            lambda: ssd_scan(x, dt, A, Bm, Cm),
+            lambda: ref.ssd_scan_ref(x, dt, A, Bm, Cm, chunk=chunk),
+            None)            # no single PyTorch call computes the SSD scan
+
+    # one row per kernel at its main serving shape (qwen2-7b's attention,
+    # zamba2-7b's SSD); zamba2's hd-112 attention and mamba2's SSD beside
+    B = SERVE_BATCH
+    rows.append(flash_at(QWEN, B, 512, 28, 4, 128))
+    rows.append(decode_at(QWEN, B, 28, 4, 128, 528))
+    rows.append(ssd_at(ZAMBA, B, 474, 112, 64, 64, 128))
+    extra.append(flash_at(ZAMBA, B, 512, 32, 32, 112))
+    extra.append(decode_at(ZAMBA, B, 32, 32, 112, 528))
+    extra.append(ssd_at(MAMBA, B, 474, 24, 64, 128, 128))
+    emit("kernels_serving_shapes", card=card["nvidia_smi"], rows=rows,
+         also=extra, ok=oks)
+    if not all(oks.values()):
         raise AssertionError(f"serving-shape kernels out of tolerance: "
-                             f"flash {err_f}, decode {err_d}")
+                             f"{[k for k, ok in oks.items() if not ok]}")
     return rows
 
 
 # ---------------------------------------------------------------------------
-def _qwen(torch, num_layers=None, dtype=None, seed: int = 0):
+def _model(torch, name: str, num_layers=None, dtype=None, seed: int = 0):
     from repro_torch.configs import get_arch
     from repro_torch.models import Model
-    arch = get_arch(QWEN)
+    arch = get_arch(name)
     if num_layers is not None:
         arch = arch.scaled(num_layers=num_layers)
     model = Model(arch, device="cuda", dtype=dtype or torch.bfloat16)
     return model.init(torch.Generator(device="cuda").manual_seed(seed))
 
 
-def phase_model(torch, card):
+@contextlib.contextmanager
+def _each_call_checked(torch, found: dict):
+    """Within the block, every kernel launch is also held against its plain
+    version on the same inputs (attention at its dtype's tolerance, the
+    SSD's y and final state at 2e-3); ``found`` collects, per kernel, the
+    calls, the largest |error| and the calls out of tolerance.  Each SSD
+    call is also held against the recurrence in float64 on its inputs
+    (SSD_F64_TOL): ``found["ssd_scan_vs_float64"]`` holds the calls, the
+    kernel's and the plain version's largest relative error, and the
+    kernel's calls over the limit."""
+    from repro_torch.kernels import decode_attention as dmod
+    from repro_torch.kernels import flash_attention as fmod
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import ssd_scan as smod
+
+    def record(kernel, pairs, tol):
+        n, worst, bad = found.get(kernel, (0, 0.0, 0))
+        errs = [_max_err(torch, out, want, tol) for out, want in pairs]
+        found[kernel] = (n + 1, max([worst] + [e for e, _ in errs]),
+                         bad + (not all(ok for _, ok in errs)))
+
+    def tol(x):
+        return TOLS[str(x.dtype).removeprefix("torch.")]
+
+    flash, decode, ssd = (fmod.flash_attention, dmod.decode_attention,
+                          smod.ssd_scan)
+
+    def flash_checked(q, k, v, **kw):
+        out = flash(q, k, v, **kw)
+        record("flash_attention",
+               [(out, ref.flash_attention_ref(q, k, v, **kw))], tol(q))
+        return out
+
+    def decode_checked(q, kc, vc, cache_len, **kw):
+        out = decode(q, kc, vc, cache_len, **kw)
+        record("decode_attention",
+               [(out, ref.decode_attention_ref(q, kc, vc, cache_len, **kw))],
+               tol(q))
+        return out
+
+    def ssd_checked(x, dt, A, Bm, Cm, init_state=None):
+        y, fin = ssd(x, dt, A, Bm, Cm, init_state=init_state)
+        want = ref.ssd_scan_ref(x, dt, A, Bm, Cm, init_state=init_state)
+        record("ssd_scan", list(zip((y, fin), want)), SSD_TOL)
+        exact = ref.ssd_ref(*(t.double() for t in (x, dt, A, Bm, Cm)),
+                            init_state=None if init_state is None
+                            else init_state.double())
+        kern, plain = max(_rel_errs((y, fin), exact)), max(_rel_errs(want,
+                                                                     exact))
+        n, wk, wp, bad = found.get("ssd_scan_vs_float64", (0, 0.0, 0.0, 0))
+        found["ssd_scan_vs_float64"] = (n + 1, max(wk, kern), max(wp, plain),
+                                        bad + (kern > SSD_F64_TOL))
+        return y, fin
+
+    fmod.flash_attention, dmod.decode_attention, smod.ssd_scan = (
+        flash_checked, decode_checked, ssd_checked)
+    try:
+        yield
+    finally:
+        fmod.flash_attention, dmod.decode_attention, smod.ssd_scan = (
+            flash, decode, ssd)
+
+
+def _calls_in_tolerance(arch, found: dict, prefills: int, steps: int):
+    """None if the checked calls are all in tolerance and as many as the
+    path makes (per prefill one flash call per attention application and
+    one SSD call per Mamba2 layer, per decode step one decode call per
+    application), else what is wrong."""
+    from repro_torch.models.kvcache import num_attn_applications
+    n_attn = num_attn_applications(arch)
+    expect = {k: n for k, n in (
+        ("flash_attention", n_attn * prefills),
+        ("decode_attention", n_attn * steps),
+        ("ssd_scan", arch.num_layers * prefills if arch.ssm else 0)) if n}
+    calls = {k: v[0] for k, v in found.items() if k in KERNELS}
+    bad = {k: v[-1] for k, v in found.items() if v[-1]}
+    if calls != expect or bad:
+        return f"calls {calls} (expected {expect}), out of tolerance {bad}"
+    return None
+
+
+@contextlib.contextmanager
+def _plain_altered(attr: str, wrong, every_call: bool = False):
+    """Within the block, the plain version ``ref.<attr>`` has its
+    arguments changed by ``wrong(args, kwargs)`` on its first call, or on
+    every call."""
+    from repro_torch.kernels import ref
+    plain, calls = getattr(ref, attr), [0]
+
+    def altered(*args, **kw):
+        calls[0] += 1
+        if every_call or calls[0] == 1:
+            args, kw = wrong(args, kw)
+        return plain(*args, **kw)
+
+    setattr(ref, attr, altered)
+    try:
+        yield
+    finally:
+        setattr(ref, attr, plain)
+
+
+@contextlib.contextmanager
+def _plain_in_float64(torch):
+    """Within the block, the plain attention and SSD compute in float64
+    (inputs cast up, results cast back): the yardstick of both fp32
+    paths, since a stack of random Mamba2 layers amplifies rounding."""
+    from repro_torch.kernels import ref
+    saved = {n: getattr(ref, n) for n in (
+        "flash_attention_ref", "decode_attention_ref", "ssd_scan_ref")}
+
+    def up(t):
+        return t.double() if torch.is_tensor(t) else t
+
+    def in_float64(plain):
+        def call(*args, **kw):
+            out = plain(*map(up, args), **{k: up(v) for k, v in kw.items()})
+            f = args[0].dtype
+            return (tuple(o.to(f) for o in out) if isinstance(out, tuple)
+                    else out.to(f))
+        return call
+
+    for name, plain in saved.items():
+        setattr(ref, name, in_float64(plain))
+    try:
+        yield
+    finally:
+        for name, plain in saved.items():
+            setattr(ref, name, plain)
+
+
+def _forced_logits(torch, model, prompts, forced):
+    """Next-token logits [B, n, V]: of the prompts (prefill), then of each
+    of ``forced[:, :n-1]`` in turn (decode steps)."""
+    S = prompts.shape[1]
+    logits, cache = model.prefill(prompts, max_seq=SERVE_MAX_SEQ)
+    out = [logits[:, -1]]
+    for i in range(forced.shape[1] - 1):
+        logits, cache = model.decode_step(cache, S + i, forced[:, i:i + 1])
+        out.append(logits[:, -1])
+    return torch.stack(out, 1)
+
+
+def phase_model(torch, card, name: str, small_layers: int):
+    """A full-width bf16 prefill, then a fp32 generation at a few layers,
+    each through the kernels and through the plain versions.  Every kernel
+    call is held against its plain version on the same inputs, and every
+    SSD call against the recurrence in float64.  A stack of random Mamba2
+    layers amplifies rounding, so the fp32 logits of the kernel path are
+    held against the plain path in float64, at twice the plain fp32
+    path's own distance from it; the bf16 prefill logits are held against
+    the plain path only where a control reading with only the rounding
+    changed (the SSD's chunk halved) stays below the limit (in bf16 the
+    Mamba2 stack decorrelates them)."""
     import numpy as np
     from repro_torch.serving.engine import Engine, EngineConfig
 
-    model = _qwen(torch)
+    model = _model(torch, name)
     arch = model.arch
     rng = np.random.default_rng(1)
     tokens = torch.as_tensor(
         rng.integers(0, arch.vocab_size, size=(SERVE_BATCH, 512)),
         device=model.device)
-    model.attn_impl = "kernel"
-    got, _ = model.prefill(tokens)
-    model.attn_impl = "plain"
+    per_call = {}
+    with _each_call_checked(torch, per_call):
+        got, _ = model.prefill(tokens)
+    model.impl = "plain"
     want, _ = model.prefill(tokens)
-    model.attn_impl = "kernel"
-    rel = float((got - want).abs().max() / want.abs().max())
-    top1 = float((got.argmax(-1) == want.argmax(-1)).float().mean())
+
+    def rel_top1(out):
+        return (float((out - want).abs().max() / want.abs().max()),
+                float((out.argmax(-1) == want.argmax(-1)).float().mean()))
+
+    rel, top1 = rel_top1(got)
     finite = bool(torch.isfinite(got).all())
-    # A control reading of the same measure: the plain path with one wrong
-    # attention (layer 0 not causal), to show what a broken kernel in one
-    # layer of 28 would read against the 2e-2 limit.
-    from repro_torch.kernels import ref
-    plain, calls = ref.flash_attention_ref, [0]
+    # Control readings on the plain path: one wrong call (the first
+    # attention not causal; the first SSD with A halved) shows what a
+    # broken kernel in one layer reads against the limit.
+    controls = {}
 
-    def broken(q, k, v, *, causal=True, scale=None):
-        calls[0] += 1
-        return plain(q, k, v, causal=causal and calls[0] > 1, scale=scale)
+    def control(attr, wrong, every_call=False):
+        with _plain_altered(attr, wrong, every_call):
+            bad, _ = model.prefill(tokens)
+        return rel_top1(bad)
 
-    model.attn_impl = "plain"
-    ref.flash_attention_ref = broken
-    try:
-        bad, _ = model.prefill(tokens)
-    finally:
-        ref.flash_attention_ref = plain
-        model.attn_impl = "kernel"
-    control = float((bad - want).abs().max() / want.abs().max())
+    if arch.num_heads:
+        controls["first_attention_not_causal"] = control(
+            "flash_attention_ref", lambda a, kw: (a, {**kw, "causal": False}))
+    rounding = None
+    if arch.ssm is not None:
+        controls["first_ssd_A_halved"] = control(
+            "ssd_scan_ref",
+            lambda a, kw: (a[:2] + (a[2] * 0.5,) + a[3:], kw))
+        label = "every_ssd_chunk_halved"
+        controls[label] = control(
+            "ssd_scan_ref",
+            lambda a, kw: (a, {**kw, "chunk": arch.ssm.chunk_size // 2}),
+            every_call=True)
+        rounding = controls[label][0]
+    model.impl = "kernel"
+    logits_decide = rounding is None or rounding < LOGITS_TOL
+    calls_wrong = _calls_in_tolerance(arch, per_call, prefills=1, steps=0)
     emit("model_prefill", card=card["nvidia_smi"], arch=arch.name,
          params=sum(p.numel() for p in model.parameters()),
          logits_shape=list(got.shape), rel_err=rel, top1_agreement=top1,
-         finite=finite, control_rel_err_layer0_not_causal=control,
-         control_top1_agreement=float(
-             (bad.argmax(-1) == want.argmax(-1)).float().mean()))
-    if not (finite and rel < 2e-2):
-        raise AssertionError(f"prefill logits: rel err {rel}, finite {finite}")
+         finite=finite, controls_rel_err_top1=controls,
+         logits_decide=logits_decide,
+         per_call_calls_maxerr_bad={k: list(v) for k, v in per_call.items()})
+    if (not finite or calls_wrong
+            or (logits_decide and rel >= LOGITS_TOL)):
+        raise AssertionError(f"{arch.name} prefill: rel err {rel}, finite "
+                             f"{finite}, {calls_wrong}")
 
-    small = _qwen(torch, num_layers=2, dtype=torch.float32, seed=2)
+    small = _model(torch, name, num_layers=small_layers, dtype=torch.float32,
+                   seed=2)
     prompts = rng.integers(0, arch.vocab_size,
                            size=(SERVE_BATCH, 300)).astype(np.int32)
     outs = {}
     for impl in ("kernel", "plain"):
-        small.attn_impl = impl
+        small.impl = impl
         eng = Engine(small, EngineConfig(max_batch=SERVE_BATCH,
                                          max_seq=SERVE_MAX_SEQ))
         outs[impl] = eng.generate(prompts, max_new=SERVE_NEW)
     same = bool(np.array_equal(outs["kernel"], outs["plain"]))
-    emit("model_greedy_fp32_2layer", card=card["nvidia_smi"],
-         identical_tokens=same, tokens_kernel=outs["kernel"][0].tolist(),
-         tokens_plain=outs["plain"][0].tolist())
-    if not same:
-        raise AssertionError("kernel and plain greedy tokens differ")
+    # Teacher-forced along the plain path's tokens, so that one flipped
+    # pick does not send the paths down different continuations: the
+    # kernel path, the plain path and the plain path in float64.  The
+    # kernel path may be at most twice as far from the float64 path as the
+    # plain path is (or 1e-3, whichever is larger).
+    prompt_t = torch.as_tensor(prompts, device=small.device).long()
+    forced = torch.as_tensor(outs["plain"], device=small.device).long()
+    per_call, logits = {}, {}
+    small.impl = "kernel"
+    with _each_call_checked(torch, per_call):
+        logits["kernel"] = _forced_logits(torch, small, prompt_t, forced)
+    small.impl = "plain"
+    logits["plain"] = _forced_logits(torch, small, prompt_t, forced)
+    with _plain_in_float64(torch):
+        logits["float64"] = _forced_logits(torch, small, prompt_t, forced)
+    small.impl = "kernel"
+
+    def rel_per_seq(a, b):
+        return ((logits[a] - logits[b]).abs().amax(dim=(1, 2))
+                / logits[b].abs().max()).tolist()
+
+    per_seq = {"kernel_vs_plain": rel_per_seq("kernel", "plain"),
+               "kernel_vs_float64": rel_per_seq("kernel", "float64"),
+               "plain_vs_float64": rel_per_seq("plain", "float64")}
+    rel = max(per_seq["kernel_vs_float64"])
+    limit = max(FP32_LOGITS_TOL, 2 * max(per_seq["plain_vs_float64"]))
+    diff = (logits["kernel"] - logits["plain"]).abs().amax(-1)     # [B, n]
+    pick = {impl: lg.argmax(-1) for impl, lg in logits.items()}
+    flips = []
+    for b, t in (pick["kernel"] != pick["plain"]).nonzero().tolist():
+        lg = logits["plain"][b, t]
+        flips.append(dict(seq=b, step=t, margin=float(
+            lg[pick["plain"][b, t]] - lg[pick["kernel"][b, t]]),
+            logit_diff=float(diff[b, t])))
+    calls_wrong = _calls_in_tolerance(small.arch, per_call, prefills=1,
+                                      steps=forced.shape[1] - 1)
+    differ = np.nonzero((outs["kernel"] != outs["plain"]).any(1))[0]
+    emit("model_greedy_fp32", card=card["nvidia_smi"], arch=arch.name,
+         layers=small_layers, identical_tokens=same,
+         sequences_differing=differ.tolist(),
+         forced_kernel_vs_float64=rel, forced_limit=limit,
+         forced_rel_err_per_sequence=per_seq, forced_flips=flips,
+         per_call_calls_maxerr_bad={k: list(v) for k, v in per_call.items()},
+         tokens_kernel=outs["kernel"][differ[:1]].tolist(),
+         tokens_plain=outs["plain"][differ[:1]].tolist())
+    if calls_wrong or not rel <= limit:
+        raise AssertionError(f"{arch.name}: fp32 teacher-forced logits, "
+                             f"kernel path vs float64 {rel} > {limit}; "
+                             f"{calls_wrong}")
     del small
     torch.cuda.empty_cache()
     return model
@@ -341,11 +697,14 @@ def phase_serve(torch, card, model, seed: int) -> dict:
     import numpy as np
     from repro_torch.kernels import decode_attention as dmod
     from repro_torch.kernels import flash_attention as fmod
+    from repro_torch.kernels import ssd_scan as smod
+    from repro_torch.models.kvcache import num_attn_applications
     from repro_torch.serving.batcher import Batcher, ServeRequest
     from repro_torch.serving.engine import Engine, EngineConfig
 
     rng = np.random.default_rng(seed)
-    V, L = model.arch.vocab_size, model.arch.num_layers
+    arch = model.arch
+    V = arch.vocab_size
     lens = rng.integers(PROMPT_LENS[0], PROMPT_LENS[1] + 1, size=SERVE_BATCH)
     eng = Engine(model, EngineConfig(max_batch=SERVE_BATCH,
                                      max_seq=SERVE_MAX_SEQ))
@@ -360,8 +719,10 @@ def phase_serve(torch, card, model, seed: int) -> dict:
                                     .astype(np.int32),
                                     deadline_s=1e9, submitted_s=0.0))
     torch.cuda.reset_peak_memory_stats()
-    fmod.launches = 0
-    dmod.launches = 0
+    mods = {"flash_attention": fmod, "decode_attention": dmod,
+            "ssd_scan": smod}
+    for mod in mods.values():
+        mod.launches = 0
     done, walls = [], []
     while batcher.queue:
         t0 = time.monotonic()
@@ -371,15 +732,17 @@ def phase_serve(torch, card, model, seed: int) -> dict:
         if not served:
             raise AssertionError("the batcher launched nothing")
         done += served
-    counts = {"flash_attention": fmod.launches,
-              "decode_attention": dmod.launches}
+    counts = {name: mod.launches for name, mod in mods.items()}
     n_batches = len(walls)
-    expect = {"flash_attention": L * n_batches,
-              "decode_attention": L * n_batches * (SERVE_NEW - 1)}
+    n_attn = num_attn_applications(arch)
+    n_ssm = arch.num_layers if arch.ssm is not None else 0
+    expect = {"flash_attention": n_attn * n_batches,
+              "decode_attention": n_attn * n_batches * (SERVE_NEW - 1),
+              "ssd_scan": n_ssm * n_batches}
     results_ok = all(r.result is not None and r.result.shape == (SERVE_NEW,)
                      and int(r.result.min()) >= 0
                      and int(r.result.max()) < V for r in done)
-    emit("serve", card=card["nvidia_smi"], arch=model.arch.name,
+    emit("serve", card=card["nvidia_smi"], arch=arch.name,
          requests=SERVE_BATCH, served=len(done), dropped=batcher.dropped,
          prompt_lens=lens.tolist(), batches=n_batches,
          wall_s_per_batch=walls,
@@ -387,10 +750,11 @@ def phase_serve(torch, card, model, seed: int) -> dict:
          max_memory_allocated_bytes=torch.cuda.max_memory_allocated(),
          launches=counts, expected_launches=expect)
     if len(done) != SERVE_BATCH or not results_ok:
-        raise AssertionError(f"served {len(done)} of {SERVE_BATCH} "
-                             f"(results ok: {results_ok})")
+        raise AssertionError(f"{arch.name}: served {len(done)} of "
+                             f"{SERVE_BATCH} (results ok: {results_ok})")
     if counts != expect:
-        raise AssertionError(f"launch counts {counts} != {expect}")
+        raise AssertionError(f"{arch.name}: launch counts {counts} != "
+                             f"{expect}")
     return counts, eng, int(lens.max())
 
 
@@ -449,7 +813,8 @@ def phase_profile(torch, card, eng, S: int) -> None:
     busy_p, top_p = kernels(p_prefill)
     busy_d, top_d = kernels(p_decode)
     decode_s = sum(steps)
-    emit("profile", card=card["nvidia_smi"], padded_prompt_len=S,
+    emit("profile", card=card["nvidia_smi"], arch=model.arch.name,
+         padded_prompt_len=S,
          prefill_s=prefill_s, decode_step_s=steps, decode_total_s=decode_s,
          prefill_device_busy_ms=busy_p,
          prefill_idle_share=1.0 - busy_p / 1e3 / prefill_s,
@@ -480,11 +845,19 @@ def main(argv=None) -> int:
     card = phase_device(torch)
     phase_build()
     rows = phase_kernels(torch, card)
-    model = phase_model(torch, card)
-    counts, eng, S = phase_serve(torch, card, model, args.seed)
-    phase_profile(torch, card, eng, S)
-    for row in rows:
-        row["launches"] = counts[row["name"]]
+    launches = {}                 # per served model, per kernel
+    # (model, layers of its fp32 greedy check; None: no model phase)
+    for name, small_layers in ((QWEN, 2), (ZAMBA, 7), (MAMBA, None)):
+        model = (phase_model(torch, card, name, small_layers) if small_layers
+                 else _model(torch, name))
+        launches[name], eng, S = phase_serve(torch, card, model, args.seed)
+        phase_profile(torch, card, eng, S)
+        del model, eng
+        torch.cuda.empty_cache()
+    for row in rows:              # the serve run of the model row's shape
+        row["launches"] = launches[row["model"]][row["name"]]
+        row["launches_by_model"] = {m: c[row["name"]]
+                                    for m, c in launches.items()}
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": card["name"], "count": card["count"]}}),

@@ -21,7 +21,7 @@ from typing import Dict, Iterable, Optional
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
-SOURCES = ("flash_attention", "decode_attention")
+SOURCES = ("flash_attention", "decode_attention", "ssd_scan")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -34,6 +34,8 @@ _SIGNATURES = {
     "decode_attention": ("decode_attention_launch",
                          [_ptr] * 4 + [_int] * 5 + [_i64] * 10
                          + [ctypes.c_float, _int, _ptr]),
+    "ssd_scan": ("ssd_scan_launch",
+                 [_ptr] * 8 + [_int] * 5 + [_i64] * 12 + [_ptr]),
 }
 
 _libs: Dict[str, ctypes.CDLL] = {}

@@ -61,7 +61,10 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ kc,
                         const T* __restrict__ vc, T* __restrict__ o, int cache_len, int G,
                         Strides qs, Strides ks, Strides vs, Strides os, float scale) {
   constexpr int KS = HD + 1;
-  constexpr int R = MAXG * HD / THREADS;  // accumulators per thread
+  // accumulators per thread, rounded up: at hd 112 a group of 8 has 896
+  // (row, d) outputs, 3.5 per thread; the loops below stop at G * HD.
+  constexpr int R = (MAXG * HD + THREADS - 1) / THREADS;
+  static_assert(R * THREADS >= MAXG * HD, "every (row, d) output needs a thread");
   extern __shared__ float smem[];
   float* sq = smem;              // [G][HD], pre-scaled
   float* sk = sq + MAXG * HD;    // [BKV][KS]
@@ -194,6 +197,8 @@ cudaError_t launch_hd(int hd, const void* q, const void* kc, const void* vc, voi
   switch (hd) {
     case 64:
       return launch<T, 64>(q, kc, vc, o, B, KV, G, cache_len, qs, ks, vs, os, scale, stream);
+    case 112:
+      return launch<T, 112>(q, kc, vc, o, B, KV, G, cache_len, qs, ks, vs, os, scale, stream);
     case 128:
       return launch<T, 128>(q, kc, vc, o, B, KV, G, cache_len, qs, ks, vs, os, scale, stream);
     case 256:

@@ -75,6 +75,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        const T* __restrict__ v, T* __restrict__ o, int Sq, int Skv,
                        int G, Strides qs, Strides ks, Strides vs, Strides os,
                        float scale, int causal) {
+  static_assert(HD % 16 == 0, "each thread owns output columns tx + 16 j");
   constexpr int QS = HD + 1;
   constexpr int DJ = HD / 16;  // output columns per thread (tx + 16 j)
   extern __shared__ float smem[];
@@ -240,6 +241,8 @@ cudaError_t launch_hd(int hd, const void* q, const void* k, const void* v, void*
   switch (hd) {
     case 64:
       return launch<T, 64>(q, k, v, o, B, Sq, Skv, H, KV, qs, ks, vs, os, scale, causal, stream);
+    case 112:
+      return launch<T, 112>(q, k, v, o, B, Sq, Skv, H, KV, qs, ks, vs, os, scale, causal, stream);
     case 128:
       return launch<T, 128>(q, k, v, o, B, Sq, Skv, H, KV, qs, ks, vs, os, scale, causal, stream);
     case 256:

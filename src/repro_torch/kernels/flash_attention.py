@@ -12,7 +12,7 @@ import torch
 
 from repro_torch.kernels import build
 
-HEAD_DIMS = (64, 128, 256)
+HEAD_DIMS = (64, 112, 128, 256)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 launches = 0

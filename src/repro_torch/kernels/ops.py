@@ -7,13 +7,14 @@ fails to build or launch.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
 from repro_torch.kernels import decode_attention as _decode
 from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import ref
+from repro_torch.kernels import ssd_scan as _ssd
 
 
 def _on_cuda(x: torch.Tensor) -> bool:
@@ -42,3 +43,16 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                                         scale=scale)
     return ref.decode_attention_ref(q, k_cache, v_cache, cache_len,
                                     scale=scale)
+
+
+def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+             Bm: torch.Tensor, Cm: torch.Tensor, *, chunk: int = 128,
+             init_state: Optional[torch.Tensor] = None
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Mamba2 SSD over [B,S,nh,hd] -> (y, final state [B,nh,hd,ds]).
+    ``chunk`` sets the plain version's chunk; the kernel walks fixed
+    64-row chunks (the result is the same up to rounding)."""
+    if _on_cuda(x):
+        return _ssd.ssd_scan(x, dt, A, Bm, Cm, init_state=init_state)
+    return ref.ssd_scan_ref(x, dt, A, Bm, Cm, chunk=chunk,
+                            init_state=init_state)

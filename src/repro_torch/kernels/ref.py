@@ -2,12 +2,14 @@
 
 They are the CPU path of ``ops`` and the oracles the CUDA kernels are held
 against on the card.  Like ``repro.kernels.ref`` they are deliberately
-naive: the whole ``S x S`` score matrix, fp32 math throughout, ``-1e30`` as
-the mask value.
+naive: the whole ``S x S`` score matrix, fp32 math (float64 for float64
+inputs), ``-1e30`` as the mask value.  ``ssd_scan_ref`` is the SSD's chunked dual form (the CPU path of
+``ops.ssd_scan``); ``ssd_ref`` is its exact sequential recurrence, the
+oracle both are held against.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -22,14 +24,15 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     Skv, KV = k.shape[1], k.shape[2]
     g = H // KV
     scale = scale if scale is not None else hd ** -0.5
-    qf = q.float().reshape(B, Sq, KV, g, hd) * scale
-    s = torch.einsum("bqkgd,bskd->bkgqs", qf, k.float())
+    f = torch.promote_types(q.dtype, torch.float32)
+    qf = q.to(f).reshape(B, Sq, KV, g, hd) * scale
+    s = torch.einsum("bqkgd,bskd->bkgqs", qf, k.to(f))
     if causal:
         rows = torch.arange(Sq, device=q.device)[:, None] + (Skv - Sq)
         mask = rows >= torch.arange(Skv, device=q.device)[None, :]
         s = s.masked_fill(~mask, NEG_INF)
     p = torch.softmax(s, dim=-1)
-    o = torch.einsum("bkgqs,bskd->bqkgd", p, v.float())
+    o = torch.einsum("bkgqs,bskd->bqkgd", p, v.to(f))
     return o.reshape(B, Sq, H, hd).to(q.dtype)
 
 
@@ -42,10 +45,102 @@ def decode_attention_ref(q: torch.Tensor, k_cache: torch.Tensor,
     H = q.shape[2]
     g = H // KV
     scale = scale if scale is not None else hd ** -0.5
-    qf = q.float()[:, 0].reshape(B, KV, g, hd) * scale
-    s = torch.einsum("bkgd,bskd->bkgs", qf, k_cache.float())
+    f = torch.promote_types(q.dtype, torch.float32)
+    qf = q.to(f)[:, 0].reshape(B, KV, g, hd) * scale
+    s = torch.einsum("bkgd,bskd->bkgs", qf, k_cache.to(f))
     valid = torch.arange(S, device=q.device) < cache_len
     s = s.masked_fill(~valid, NEG_INF)
     p = torch.softmax(s, dim=-1)
-    o = torch.einsum("bkgs,bskd->bkgd", p, v_cache.float())
+    o = torch.einsum("bkgs,bskd->bkgd", p, v_cache.to(f))
     return o.reshape(B, 1, H, hd).to(q.dtype)
+
+
+def _segsum_exp(cs: torch.Tensor) -> torch.Tensor:
+    """cs: [..., q] cumulative log-decay -> L[..., i, j] = exp(cs_i - cs_j)
+    for i >= j, else 0.  The mask goes on the exponent: masked
+    differences are positive and their exp could overflow."""
+    q = cs.shape[-1]
+    diff = cs[..., :, None] - cs[..., None, :]
+    mask = torch.ones(q, q, dtype=torch.bool, device=cs.device).tril()
+    return torch.exp(diff.masked_fill(~mask, NEG_INF))
+
+
+def ssd_scan_ref(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                 Bm: torch.Tensor, Cm: torch.Tensor, *, chunk: int = 128,
+                 init_state: Optional[torch.Tensor] = None
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Mamba2 SSD in chunked dual form (``repro.models.ssm.ssd_chunked``).
+
+    x: [B,S,nh,hd]; dt: [B,S,nh] (softplus'd); A: [nh] (< 0); Bm, Cm:
+    [B,S,ds]; init_state: [B,nh,hd,ds]; all fp32.  The chunk shrinks until
+    it divides S, as the reference's does.  Returns (y [B,S,nh,hd], final
+    state [B,nh,hd,ds]).
+
+    The cumulative log-decay is summed in float64, the products stay fp32:
+    with A down to -16 the sums reach about -1000 in a chunk, and in fp32
+    the rounding of two such sums, ~6e-5, is the relative error of the
+    near-diagonal ``L`` entries, which leaves y ~1e-5 (of its largest
+    value) off the exact recurrence instead of ~1e-7."""
+    B_, S, nh, hd = x.shape
+    ds = Bm.shape[-1]
+    q = min(chunk, S)
+    while S % q:
+        q -= 1
+    c = S // q
+    xc = x.reshape(B_, c, q, nh, hd)
+    dtc = dt.reshape(B_, c, q, nh)
+    Bc = Bm.reshape(B_, c, q, ds)
+    Cc = Cm.reshape(B_, c, q, ds)
+
+    dA_cs = torch.cumsum(dtc.double() * A.double(), dim=2)  # [B,c,q,nh]
+    xdt = xc * dtc[..., None]                             # [B,c,q,nh,hd]
+
+    # 1. within each chunk: (L o C B^T) (x dt)
+    Lmat = _segsum_exp(dA_cs.movedim(-1, -2)).to(x.dtype)  # [B,c,nh,q,q]
+    scores = torch.einsum("bcin,bcjn->bcij", Cc, Bc)      # [B,c,q,q]
+    y_diag = torch.einsum("bchij,bcjhp->bcihp",
+                          Lmat * scores[:, :, None], xdt)
+
+    # 2. each chunk's contribution to the state it leaves
+    decay_states = torch.exp(dA_cs[:, :, -1:] - dA_cs).to(x.dtype)
+    states = torch.einsum("bcjhp,bcjn->bchpn",
+                          xc * (decay_states * dtc)[..., None], Bc)
+
+    # 3. the state entering each chunk, chunk by chunk
+    chunk_decay = torch.exp(dA_cs[:, :, -1]).to(x.dtype)  # [B,c,nh]
+    state = (init_state if init_state is not None
+             else torch.zeros(B_, nh, hd, ds, dtype=x.dtype, device=x.device))
+    entering = []
+    for i in range(c):
+        entering.append(state)
+        state = state * chunk_decay[:, i, :, None, None] + states[:, i]
+    prev_states = torch.stack(entering, dim=1)            # [B,c,nh,hd,ds]
+
+    # 4. what the entering state adds to each row of its chunk
+    y_off = torch.einsum("bcin,bchpn->bcihp", Cc, prev_states) \
+        * torch.exp(dA_cs).to(x.dtype)[..., None]
+    return (y_diag + y_off).reshape(B_, S, nh, hd), state
+
+
+def ssd_ref(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+            Bm: torch.Tensor, Cm: torch.Tensor,
+            init_state: Optional[torch.Tensor] = None
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Exact sequential SSD recurrence (``repro.kernels.ref.ssd_ref``):
+    state_t = state_{t-1} exp(dt_t A) + dt_t x_t (x) B_t;  y_t = state_t . C_t.
+    Shapes as :func:`ssd_scan_ref`.  Computes in fp32, or in float64 when x
+    is float64 (the yardstick of both fp32 forms)."""
+    B_, S, nh, hd = x.shape
+    ds = Bm.shape[-1]
+    dtype = torch.promote_types(x.dtype, torch.float32)
+    x, dt, A, Bm, Cm = (t.to(dtype) for t in (x, dt, A, Bm, Cm))
+    state = (init_state.to(dtype) if init_state is not None
+             else torch.zeros(B_, nh, hd, ds, dtype=dtype, device=x.device))
+    ys = []
+    for t in range(S):
+        decay = torch.exp(dt[:, t] * A)                   # [B,nh]
+        upd = torch.einsum("bhp,bn->bhpn", x[:, t] * dt[:, t, :, None],
+                           Bm[:, t])
+        state = state * decay[..., None, None] + upd
+        ys.append(torch.einsum("bhpn,bn->bhp", state, Cm[:, t]))
+    return torch.stack(ys, dim=1), state

@@ -3,7 +3,10 @@
 ``torch.Generator`` cannot reproduce ``jax.random``, so tests that hold the
 port against the JAX package initialise once in JAX and convert.  The JAX
 block weights are stacked ``[L, ...]``; each layer's slice keeps its layout
-(``wq [d, H, hd]``, ``wo [H, hd, d]``, ...) under ``blocks.<i>.<name>``.
+(``wq [d, H, hd]``, ``wo [H, hd, d]``, ``wz [d, nh, hd]``, ...) under
+``blocks.<i>.<name>``.  A hybrid's shared attention block, stacked
+``[1, ...]``, goes to ``shared_attn.<name>``.  Dtypes are kept: the SSM's
+``A_log`` and ``dt_bias`` are fp32 in every model.
 """
 from __future__ import annotations
 
@@ -13,7 +16,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.models.model import DENSE_FAMILIES
+from repro_torch.models.model import FAMILIES
 
 
 def _tensor(x: Any) -> torch.Tensor:
@@ -23,22 +26,29 @@ def _tensor(x: Any) -> torch.Tensor:
     return torch.tensor(a)            # a copy: jax hands out read-only arrays
 
 
+def _unstack(prefix: str, stacked: Mapping[str, Any], n: int,
+             out: Dict[str, torch.Tensor], index: bool = True) -> None:
+    for name, w in stacked.items():
+        w = _tensor(w)
+        if w.shape[0] != n:
+            raise ValueError(f"{prefix}/{name}: {w.shape[0]} layers, "
+                             f"expected {n}")
+        for i in range(n):
+            out[f"{prefix}.{i}.{name}" if index else f"{prefix}.{name}"] = w[i]
+
+
 def from_jax_params(arch: ArchConfig,
                     params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     """``repro.models.Model.init`` params (arrays or numpy arrays) ->
     ``repro_torch.models.Model`` state dict, on the CPU."""
-    if arch.family not in DENSE_FAMILIES:
+    if arch.family not in FAMILIES:
         raise NotImplementedError(f"{arch.name}: family {arch.family!r} has "
                                   f"no port yet")
     out = {"embed": _tensor(params["embed"]),
            "final_norm": _tensor(params["final_norm"])}
     if not arch.tie_embeddings:
         out["lm_head"] = _tensor(params["lm_head"])
-    for name, stacked in params["blocks"].items():
-        stacked = _tensor(stacked)
-        if stacked.shape[0] != arch.num_layers:
-            raise ValueError(f"blocks/{name}: {stacked.shape[0]} layers, "
-                             f"{arch.name} has {arch.num_layers}")
-        for i in range(arch.num_layers):
-            out[f"blocks.{i}.{name}"] = stacked[i]
+    _unstack("blocks", params["blocks"], arch.num_layers, out)
+    if arch.family == "hybrid":
+        _unstack("shared_attn", params["shared_attn"], 1, out, index=False)
     return out

@@ -1,9 +1,16 @@
-"""KV caches of the attention families.
+"""Decode caches of every ported family.
 
-A cache is ``{"k": [L tensors], "v": [L tensors]}``, one ``[B, S, KV, hd]``
-tensor per attention layer: the JAX package's layout per layer (it stacks
-them ``[L, ...]`` for its layer scan; a Python loop over layers has no use
-for the stack).  ``cache_len`` travels separately as a host int.
+A cache is a dict of per-layer lists, the JAX package's layout per layer
+(it stacks them ``[L, ...]`` for its layer scan; a Python loop over layers
+has no use for the stack):
+
+* dense / vlm / audio : ``{"k": [L x [B,S,KV,hd]], "v": [...]}``
+* ssm                 : ``{"ssm": [L x SSMLayerState]}``
+* hybrid              : ``{"k": [G x [B,S,KV,hd]], "v": [...],
+  "ssm": [L x SSMLayerState]}`` with G the number of shared-attention
+  applications, each keeping its own KV cache (per Zamba2).
+
+``cache_len`` travels separately as a host int.
 """
 from __future__ import annotations
 
@@ -12,8 +19,9 @@ from typing import Dict, List
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.models import ssm as ssm_mod
 
-Cache = Dict[str, List[torch.Tensor]]
+Cache = Dict[str, List]
 
 
 def num_attn_applications(arch: ArchConfig) -> int:
@@ -26,17 +34,25 @@ def num_attn_applications(arch: ArchConfig) -> int:
     return arch.num_layers
 
 
+def init_kv(arch: ArchConfig, batch: int, max_seq: int, dtype: torch.dtype,
+            device: torch.device) -> Cache:
+    """Zeroed KV caches of the attention applications (none for ssm)."""
+    n = num_attn_applications(arch)
+    if not n:
+        return {}
+    shape = (batch, max_seq, arch.num_kv_heads, arch.head_dim)
+    return {name: [torch.zeros(shape, dtype=dtype, device=device)
+                   for _ in range(n)] for name in ("k", "v")}
+
+
 def init_cache(arch: ArchConfig, batch: int, max_seq: int,
                dtype: torch.dtype, device: torch.device) -> Cache:
     """Zeroed caches for ``batch`` sequences of up to ``max_seq`` tokens."""
+    cache = init_kv(arch, batch, max_seq, dtype, device)
     if arch.ssm is not None:
-        raise NotImplementedError(
-            f"{arch.name}: SSM state caches are not ported yet (ROADMAP "
-            f"queue 1, next item 3)")
-    shape = (batch, max_seq, arch.num_kv_heads, arch.head_dim)
-    n = num_attn_applications(arch)
-    return {name: [torch.zeros(shape, dtype=dtype, device=device)
-                   for _ in range(n)] for name in ("k", "v")}
+        cache["ssm"] = [ssm_mod.init_layer_state(arch, batch, dtype, device)
+                        for _ in range(arch.num_layers)]
+    return cache
 
 
 def cache_bytes(arch: ArchConfig, batch: int, max_seq: int,

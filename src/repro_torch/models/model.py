@@ -1,33 +1,37 @@
-"""The port's model: the dense-family decoders (dense, vlm, audio).
+"""The port's model: the dense-family decoders (dense, vlm, audio), the
+Mamba2 SSM family and the Zamba2 hybrid family.
 
 PyTorch counterpart of ``repro.models.Model`` with the same entry points,
 holding its parameters as an ``nn.Module``:
 
 * ``forward(tokens, frontend_embeds=None)``           -- fp32 logits [B,S,V]
 * ``prefill(tokens, frontend_embeds=None, max_seq=None)`` -- last-token
-  logits and the KV cache
+  logits and the cache (KV and/or SSM states)
 * ``decode_step(cache, cache_len, tokens)``            -- one token vs cache
 
 Modality frontends (vlm/audio) are stubs, as in the reference: the first P
-positions take precomputed embeddings.  MoE, SSM and hybrid families and
-the training loss are later slices of the port.
+positions take precomputed embeddings.  A hybrid runs one shared attention
+block (``shared_attn``) before each group of ``attn_every`` Mamba2 layers,
+with one KV cache per application.  The MoE family and the training loss
+are later slices of the port.
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple, Union
+from typing import List, Optional, Tuple, Union
 
 import torch
 from torch import nn
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import kvcache, layers
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models import transformer as tfm
 
 NUM_FRONTEND_POSITIONS = 64
 DENSE_FAMILIES = ("dense", "vlm", "audio")
-_LATER = {"moe": "ROADMAP queue 1, next item 4 (models/moe.py)",
-          "ssm": "ROADMAP queue 1, next item 3 (models/ssm.py)",
-          "hybrid": "ROADMAP queue 1, next item 3 (models/ssm.py)"}
+FAMILIES = DENSE_FAMILIES + ("ssm", "hybrid")
+IMPLS = ("kernel", "plain")
+_LATER = {"moe": "ROADMAP queue 1 (models/moe.py)"}
 
 
 def resolve_device(device: Union[str, torch.device]) -> torch.device:
@@ -41,28 +45,31 @@ def resolve_device(device: Union[str, torch.device]) -> torch.device:
 
 
 class Model(nn.Module):
-    """A dense-family decoder on one device.
+    """A dense-family, SSM or hybrid decoder on one device.
 
     ``device`` defaults to ``"cuda"`` and raises when no card is present;
     ``"meta"`` builds the shapes without allocating.  Parameters are made
     with ``torch.empty``: fill them with :meth:`init` or
-    ``load_state_dict`` (e.g. from ``convert.from_jax_params``)."""
+    ``load_state_dict`` (e.g. from ``convert.from_jax_params``).
+    ``impl`` routes every kernel of the model (attention and SSD) through
+    ``kernels.ops`` (``"kernel"``) or to the plain versions directly
+    (``"plain"``)."""
 
     def __init__(self, arch: ArchConfig,
                  device: Union[str, torch.device] = "cuda",
                  dtype: torch.dtype = torch.bfloat16,
-                 attn_impl: str = "kernel"):
+                 impl: str = "kernel"):
         super().__init__()
-        if arch.family not in DENSE_FAMILIES:
+        if arch.family not in FAMILIES:
             raise NotImplementedError(
                 f"{arch.name}: family {arch.family!r} is not ported yet: "
                 f"{_LATER.get(arch.family, 'unknown family')}")
-        if attn_impl not in tfm.ATTN_IMPLS:
-            raise ValueError(f"attn_impl {attn_impl!r} not in {tfm.ATTN_IMPLS}")
+        if impl not in IMPLS:
+            raise ValueError(f"impl {impl!r} not in {IMPLS}")
         self.arch = arch
         self.device = resolve_device(device)
         self.dtype = dtype
-        self.attn_impl = attn_impl
+        self.impl = impl
         d, V = arch.d_model, arch.vocab_size
 
         def param(*shape):
@@ -73,17 +80,27 @@ class Model(nn.Module):
         self.final_norm = param(d)
         if not arch.tie_embeddings:
             self.lm_head = param(d, V)
-        self.blocks = nn.ModuleList(
-            tfm.DenseBlock(arch, self.device, dtype)
-            for _ in range(arch.num_layers))
+        block = ssm_mod.SSMBlock if arch.ssm is not None else tfm.DenseBlock
+        self.blocks = nn.ModuleList(block(arch, self.device, dtype)
+                                    for _ in range(arch.num_layers))
+        if arch.family == "hybrid":
+            self.shared_attn = tfm.DenseBlock(arch, self.device, dtype)
+
+    @property
+    def hybrid_groups(self) -> List[Tuple[int, int]]:
+        """(start, stop) Mamba2-layer ranges, one per shared-attention
+        application: ``(g * attn_every, min((g + 1) * attn_every, L))``."""
+        ae, L = self.arch.hybrid.attn_every, self.arch.num_layers
+        return [(g * ae, min((g + 1) * ae, L)) for g in range(-(-L // ae))]
 
     # ------------------------------------------------------------------
     @torch.no_grad()
     def init(self, generator: torch.Generator) -> "Model":
         """Random weights with the reference's scales: normals drawn in fp32
         from ``generator`` (on its own device) and cast; norms and biases
-        zero.  ``torch.Generator`` does not reproduce ``jax.random``: for
-        parity with the JAX package, load converted weights instead."""
+        zero; the SSM's ``A_log``, ``D`` and ``dt_bias`` as the reference
+        sets them.  ``torch.Generator`` does not reproduce ``jax.random``:
+        for parity with the JAX package, load converted weights instead."""
         arch = self.arch
 
         def normal(param: nn.Parameter, scale: float) -> None:
@@ -98,8 +115,14 @@ class Model(nn.Module):
         normal(self.final_norm, 0.0)
         if not arch.tie_embeddings:
             normal(self.lm_head, arch.d_model ** -0.5)
+        scale = ssm_mod.init_scale if arch.ssm is not None else tfm.init_scale
         for blk in self.blocks:
             for name, param in blk.named_parameters():
+                normal(param, scale(arch, name))
+            if arch.ssm is not None:
+                blk.init_constants()
+        if arch.family == "hybrid":
+            for name, param in self.shared_attn.named_parameters():
                 normal(param, tfm.init_scale(arch, name))
         return self
 
@@ -122,17 +145,61 @@ class Model(nn.Module):
                             device=self.device).expand(B, S)
 
     # ------------------------------------------------------------------
+    def _body_full(self, h: torch.Tensor, kv_seq: Optional[int] = None,
+                   want_cache: bool = True
+                   ) -> Tuple[torch.Tensor, kvcache.Cache]:
+        """Every block over the whole sequence; returns (h, cache).  With
+        ``kv_seq`` the KV caches are zero-padded to ``kv_seq`` positions,
+        without it they hold S; SSM states are per sequence, never padded.
+        ``want_cache=False`` keeps nothing (the cache comes back empty)."""
+        arch = self.arch
+        B, S = h.shape[:2]
+        positions = self._positions(B, S)
+        if kv_seq is not None:
+            cache = kvcache.init_kv(arch, B, kv_seq, self.dtype, self.device)
+        elif kvcache.num_attn_applications(arch):
+            cache = {"k": [], "v": []}
+        else:
+            cache = {}
+        if arch.ssm is not None:
+            cache["ssm"] = []
+
+        def attend(h, blk, i):
+            h, (k, v) = tfm.dense_block_full(h, blk, arch, positions,
+                                             self.impl)
+            if kv_seq is not None:
+                cache["k"][i][:, :S] = k
+                cache["v"][i][:, :S] = v
+            elif want_cache:
+                cache["k"].append(k)
+                cache["v"].append(v)
+            return h
+
+        def mamba(h, lo, hi):
+            for blk in self.blocks[lo:hi]:
+                h, state = ssm_mod.ssm_block_full(h, blk, arch,
+                                                  impl=self.impl)
+                if want_cache:
+                    cache["ssm"].append(state)
+            return h
+
+        if arch.family == "ssm":
+            h = mamba(h, 0, arch.num_layers)
+        elif arch.family == "hybrid":
+            for g, (lo, hi) in enumerate(self.hybrid_groups):
+                h = mamba(attend(h, self.shared_attn, g), lo, hi)
+        else:
+            for i, blk in enumerate(self.blocks):
+                h = attend(h, blk, i)
+        return h, cache
+
     @torch.no_grad()
     def forward(self, tokens: torch.Tensor,
                 frontend_embeds: Optional[torch.Tensor] = None
                 ) -> torch.Tensor:
         """Full-sequence forward -> fp32 logits [B, S, V]."""
-        B, S = tokens.shape
-        h = self.embed_inputs(tokens, frontend_embeds)
-        positions = self._positions(B, S)
-        for blk in self.blocks:
-            h, _ = tfm.dense_block_full(h, blk, self.arch, positions,
-                                        self.attn_impl)
+        h, _ = self._body_full(self.embed_inputs(tokens, frontend_embeds),
+                               want_cache=False)
         return self.head(h)
 
     @torch.no_grad()
@@ -141,23 +208,13 @@ class Model(nn.Module):
                 max_seq: Optional[int] = None
                 ) -> Tuple[torch.Tensor, kvcache.Cache]:
         """Forward + cache build.  Returns (last-token logits [B,1,V],
-        cache).  With ``max_seq`` the caches are zero-padded to ``max_seq``
-        positions, ready for ``decode_step``; without it they hold S."""
-        B, S = tokens.shape
+        cache).  With ``max_seq`` the KV caches are zero-padded to
+        ``max_seq`` positions, ready for ``decode_step``; without it they
+        hold S."""
+        S = tokens.shape[1]
         h = self.embed_inputs(tokens, frontend_embeds)
-        positions = self._positions(B, S)
         pad = max_seq is not None and max_seq > S
-        cache = (self.init_cache(B, max_seq) if pad
-                 else {"k": [], "v": []})
-        for i, blk in enumerate(self.blocks):
-            h, (k, v) = tfm.dense_block_full(h, blk, self.arch, positions,
-                                             self.attn_impl)
-            if pad:
-                cache["k"][i][:, :S] = k
-                cache["v"][i][:, :S] = v
-            else:
-                cache["k"].append(k)
-                cache["v"].append(v)
+        h, cache = self._body_full(h, max_seq if pad else None)
         return self.head(h[:, -1:]), cache
 
     @torch.no_grad()
@@ -165,13 +222,31 @@ class Model(nn.Module):
                     tokens: torch.Tensor
                     ) -> Tuple[torch.Tensor, kvcache.Cache]:
         """One decode step at position ``cache_len`` (a host int).
-        tokens: [B, 1].  Returns (logits [B,1,V], cache); the caches are
-        updated in place."""
+        tokens: [B, 1].  Returns (logits [B,1,V], cache); the KV caches are
+        written in place and each layer's SSM state is replaced in its
+        list."""
+        arch = self.arch
         h = layers.embed(tokens, self.embed).to(self.dtype)
-        for i, blk in enumerate(self.blocks):
-            h = tfm.dense_block_decode(h, blk, self.arch, cache["k"][i],
-                                       cache["v"][i], cache_len,
-                                       self.attn_impl)
+
+        def attend(h, blk, i):
+            return tfm.dense_block_decode(h, blk, arch, cache["k"][i],
+                                          cache["v"][i], cache_len,
+                                          self.impl)
+
+        def mamba(h, lo, hi):
+            for i in range(lo, hi):
+                h, cache["ssm"][i] = ssm_mod.ssm_block_decode(
+                    h, self.blocks[i], arch, cache["ssm"][i])
+            return h
+
+        if arch.family == "ssm":
+            h = mamba(h, 0, arch.num_layers)
+        elif arch.family == "hybrid":
+            for g, (lo, hi) in enumerate(self.hybrid_groups):
+                h = mamba(attend(h, self.shared_attn, g), lo, hi)
+        else:
+            for i, blk in enumerate(self.blocks):
+                h = attend(h, blk, i)
         return self.head(h), cache
 
     def init_cache(self, batch: int, max_seq: int) -> kvcache.Cache:

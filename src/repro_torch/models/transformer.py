@@ -3,10 +3,10 @@
 PyTorch counterpart of ``repro.models.transformer``.  One ``DenseBlock``
 holds one layer's parameters in the JAX package's per-layer layouts
 (``wq [d, H, hd]``, ``wo [H, hd, d]``, ...); the model runs its layers in a
-Python loop.  ``attn_impl`` picks the attention path: ``"kernel"`` goes
-through ``kernels.ops`` (the CUDA kernels on a CUDA tensor, their plain
-versions on a CPU one), ``"plain"`` calls the plain versions directly, so
-the card can run the same model both ways.
+Python loop.  ``impl`` picks the attention path: ``"kernel"`` goes through
+``kernels.ops`` (the CUDA kernels on a CUDA tensor, their plain versions on
+a CPU one), ``"plain"`` calls the plain versions directly, so the card can
+run the same model both ways.
 """
 from __future__ import annotations
 
@@ -18,9 +18,6 @@ from torch import nn
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels import ops, ref
 from repro_torch.models import layers
-
-ATTN_IMPLS = ("kernel", "plain")
-
 
 def block_shapes(arch: ArchConfig) -> Dict[str, Tuple[int, ...]]:
     """Parameter shapes of one dense layer (``transformer.py`` init_attn and
@@ -67,7 +64,7 @@ def _project_qkv(h: torch.Tensor, p: DenseBlock, arch: ArchConfig):
 
 
 def attention_full(h: torch.Tensor, p: DenseBlock, arch: ArchConfig,
-                   positions: torch.Tensor, attn_impl: str = "kernel"
+                   positions: torch.Tensor, impl: str = "kernel"
                    ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
     """Causal self-attention over the whole sequence (prefill).
 
@@ -78,7 +75,7 @@ def attention_full(h: torch.Tensor, p: DenseBlock, arch: ArchConfig,
     q, k, v = _project_qkv(hn, p, arch)
     q = layers.apply_rope(q, positions, arch.rope_theta)
     k = layers.apply_rope(k, positions, arch.rope_theta)
-    attend = ops.flash_attention if attn_impl == "kernel" else \
+    attend = ops.flash_attention if impl == "kernel" else \
         ref.flash_attention_ref
     out = attend(q, k, v, causal=True)
     return out.flatten(2) @ p.wo.flatten(0, 1), (k, v)
@@ -86,7 +83,7 @@ def attention_full(h: torch.Tensor, p: DenseBlock, arch: ArchConfig,
 
 def attention_decode(h: torch.Tensor, p: DenseBlock, arch: ArchConfig,
                      k_cache: torch.Tensor, v_cache: torch.Tensor,
-                     cache_len: int, attn_impl: str = "kernel"
+                     cache_len: int, impl: str = "kernel"
                      ) -> torch.Tensor:
     """One-token attention against the KV cache ([B, Smax, KV, hd]).
 
@@ -103,7 +100,7 @@ def attention_decode(h: torch.Tensor, p: DenseBlock, arch: ArchConfig,
     k = layers.apply_rope(k, pos, arch.rope_theta)
     k_cache[:, cache_len] = k[:, 0]
     v_cache[:, cache_len] = v[:, 0]
-    attend = ops.decode_attention if attn_impl == "kernel" else \
+    attend = ops.decode_attention if impl == "kernel" else \
         ref.decode_attention_ref
     out = attend(q, k_cache, v_cache, cache_len + 1)
     return out.flatten(2) @ p.wo.flatten(0, 1)
@@ -115,18 +112,18 @@ def mlp(h: torch.Tensor, p: DenseBlock, arch: ArchConfig) -> torch.Tensor:
 
 
 def dense_block_full(h: torch.Tensor, p: DenseBlock, arch: ArchConfig,
-                     positions: torch.Tensor, attn_impl: str = "kernel"):
+                     positions: torch.Tensor, impl: str = "kernel"):
     """Pre-norm residual block, full-sequence mode.  Returns (h, (k, v))."""
-    a, kv = attention_full(h, p, arch, positions, attn_impl)
+    a, kv = attention_full(h, p, arch, positions, impl)
     h = h + a
     return h + mlp(h, p, arch), kv
 
 
 def dense_block_decode(h: torch.Tensor, p: DenseBlock, arch: ArchConfig,
                        k_cache: torch.Tensor, v_cache: torch.Tensor,
-                       cache_len: int, attn_impl: str = "kernel"
+                       cache_len: int, impl: str = "kernel"
                        ) -> torch.Tensor:
     """Pre-norm residual block for one token; updates the caches in place."""
     h = h + attention_decode(h, p, arch, k_cache, v_cache, cache_len,
-                             attn_impl)
+                             impl)
     return h + mlp(h, p, arch)

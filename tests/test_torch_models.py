@@ -25,6 +25,7 @@ from repro_torch.models.kvcache import cache_bytes  # noqa: E402
 
 DENSE = ["gemma-2b", "granite-3-2b", "musicgen-large", "pixtral-12b",
          "qwen2-7b"]
+SSM = ["mamba2-130m", "zamba2-7b"]
 REL_TOL = 1e-4          # as tests/test_models_smoke.py:84
 
 
@@ -75,7 +76,7 @@ def _torch(x):
     return None if x is None else torch.from_numpy(x)
 
 
-@pytest.mark.parametrize("name", DENSE)
+@pytest.mark.parametrize("name", DENSE + SSM)
 def test_arch_copy_matches_reference(name):
     assert dataclasses.asdict(ARCHS[name]) == \
         dataclasses.asdict(JAX_ARCHS[name])
@@ -184,8 +185,8 @@ def test_model_refuses_unported_families_and_missing_card():
                                    d_ff_expert=128))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Model(moe, device="cpu")
-    with pytest.raises(ValueError, match="attn_impl"):
-        Model(ARCHS["gemma-2b"].reduced(), device="cpu", attn_impl="xla")
+    with pytest.raises(ValueError, match="impl"):
+        Model(ARCHS["gemma-2b"].reduced(), device="cpu", impl="xla")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             Model(ARCHS["gemma-2b"].reduced())
@@ -196,7 +197,7 @@ def test_plain_and_kernel_impls_agree_on_cpu(converted):
     _, _, m = converted("granite-3-2b")
     tokens = torch.from_numpy(_inputs(m.arch, 2, 12, seed=3)[0]).long()
     plain = Model(m.arch, device="cpu", dtype=torch.float32,
-                  attn_impl="plain")
+                  impl="plain")
     plain.load_state_dict(m.state_dict())
     assert torch.equal(m.forward(tokens), plain.forward(tokens))
 
@@ -210,7 +211,10 @@ def test_port_imports_neither_jax_nor_repro():
         "for m in pkgutil.walk_packages(repro_torch.__path__, 'repro_torch.'):\n"
         "    __import__(m.name)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'repro')]\n"
-        "assert not bad, bad\n")
+        "assert not bad, bad\n"
+        "for m in ('repro_torch.models.ssm', 'repro_torch.kernels.ssd_scan',\n"
+        "          'repro_torch.configs.zamba2_7b'):\n"
+        "    assert m in sys.modules, m\n")
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
         [os.path.join(root, "src"), root]))
     proc = subprocess.run([sys.executable, "-c", code], env=env,
