@@ -10,6 +10,7 @@ Phases, each printing one JSON line; any failure exits non-zero:
               source, all started together; ptxas' registers, shared memory
               and spills per kernel.
 3. kernels -- each kernel against its plain PyTorch version on the card:
+              the int8 GEMM over ragged M, K, N and both output dtypes;
               attention over a sweep of head dims (64, 112, 128, 256), GQA
               groups, dtypes, causal flags and ragged lengths; the SSD scan
               against its dual form, its sequential recurrence and that
@@ -17,9 +18,10 @@ Phases, each printing one JSON line; any failure exits non-zero:
               lengths, batches, with and without an initial state, both
               ranges of A (around -1; -1 to -16 as the models set it), and
               split in two with the state carried; then at the serving
-              shapes of qwen2-7b, zamba2-7b and mamba2-130m the kernel,
-              plain and library times (CUDA events, L2 flushed before each
-              launch) and the roofline bound.
+              shapes of qwen2-7b, zamba2-7b and mamba2-130m (and
+              qwen2-7b-int8's MLP up-projection at prefill and decode) the
+              kernel, plain and library times (CUDA events, L2 flushed
+              before each launch) and the roofline bound.
 4. model   -- full-width qwen2-7b and zamba2-7b in bf16 (random weights
               from a seeded generator): a prefill through the kernels with
               every kernel call also held against its plain version on the
@@ -43,10 +45,28 @@ Phases, each printing one JSON line; any failure exits non-zero:
               serve batch's padded shape on the host clock, then under
               torch.profiler: device time by kernel and the device's idle
               share in each.
+7. int8    -- the int8 path on full-width qwen2-7b's layer 0: each of its
+              seven projection weights quantised per output channel and run
+              through ops.quant_linear on the inputs the layer really gets
+              in one prefill of the serve batch and the decode step after
+              it; each call equal to the plain version, one launch each,
+              within 10 % of the error uniform int8 rounding predicts, and
+              (all but the MLP down-projection, whose SwiGLU input is
+              heavy-tailed) within 0.02 of the dense fp32 product.
+8. compound -- the main path through the port's own ClusterRuntime: the
+              social_media app (ingest gemma-2b, classify granite-3-2b,
+              caption qwen2-7b, one instance each at batch 8, a hand-built
+              plan with measured service times) on EngineBackend at full
+              width in bf16, Poisson 4 rps for 10 s of scenario time from
+              --seed, deadlines at 4x the app SLO; every root arrival ends
+              completed or dropped, and each arch's flash and decode
+              launches are exact.
 
 The second-to-last line is ``{"kernels": [...]}``, one row per kernel at
-its main serving shape, ``launches`` from the serve run of the model whose
-shape the row names (``launches_by_model`` gives all three); the last is
+its main serving shape (two for quant_matmul: prefill and decode),
+``launches`` from the serve run of the model whose shape the row names
+(``launches_by_model`` gives all three), or for quant_matmul from the int8
+phase at that shape; the last is
 ``{"ok": true, "device": {...}}``.  Exits 2 with no result when
 there is no CUDA device or no ``src/repro_torch`` beside this script.
 """
@@ -65,7 +85,7 @@ ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
 # Published dense peaks of one H100 SXM (NVIDIA data sheet) at 700 W.
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12, "int8": 1979e12}
 PEAK_BYTES_S = 3.35e12
 TOLS = {"float32": 2e-5, "bfloat16": 2e-2}   # tests/test_kernels.py:14-15
 
@@ -79,7 +99,12 @@ SSD_TOL = 2e-3                               # tests/test_kernels.py:74-77
 SSD_F64_TOL = 2e-6
 LOGITS_TOL = 2e-2            # full-model prefill logits, kernel vs plain
 FP32_LOGITS_TOL = 1e-3       # fp32 at a few layers, kernel vs float64
-KERNELS = ("flash_attention", "decode_attention", "ssd_scan")
+KERNELS = ("flash_attention", "decode_attention", "ssd_scan", "quant_matmul")
+QMM_TOL = 1e-6            # int8 product: exact (tests/test_kernels.py:112)
+# qwen2-7b-int8's MLP up-projection: K 3584 -> N 18944, at the serve
+# batch's prefill (8 x 474 rows) and at one decode step (8 rows)
+QMM_K, QMM_N = 3584, 18944
+QMM_PREFILL, QMM_DECODE = "qwen2-7b-int8 prefill", "qwen2-7b-int8 decode"
 
 
 def emit(phase: str, **fields) -> None:
@@ -194,6 +219,7 @@ def phase_kernels(torch, card) -> list:
     from repro_torch.kernels import ref
     from repro_torch.kernels.decode_attention import decode_attention
     from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.quant_matmul import quant_matmul
     from repro_torch.kernels.ssd_scan import ssd_scan
 
     dev = torch.device("cuda")
@@ -210,6 +236,17 @@ def phase_kernels(torch, card) -> list:
              else -torch.exp(randn(nh) * 0.5))
         return (randn(B, S, nh, hd), F.softplus(randn(B, S, nh)), A,
                 randn(B, S, ds), randn(B, S, ds))
+
+    def int8(*shape):
+        return torch.randint(-127, 128, shape, generator=gen, device=dev,
+                             dtype=torch.int8)
+
+    def qmm_inputs(M, K, N):
+        """int8 x [M,K] and w [K,N] over the whole range, positive fp32
+        scales."""
+        return (int8(M, K), int8(K, N),
+                torch.rand(M, generator=gen, device=dev) + 1e-3,
+                torch.rand(N, generator=gen, device=dev) + 1e-3)
 
     dtypes = {"float32": torch.float32, "bfloat16": torch.bfloat16}
     failures, n_cases, worst_f64 = [], 0, 0.0
@@ -290,9 +327,38 @@ def phase_kernels(torch, card) -> list:
             check("ssd_scan", torch.cat([y1, y2], 1), y, SSD_TOL,
                   part="split y", **cs)
             check("ssd_scan", s2, fin, SSD_TOL, part="split state", **cs)
+    # int8: M x K x N (ragged, the decode and prefill rows, qwen2-7b-int8's
+    # widths) x out dtype, each against the plain version (exact in
+    # practice: counted as bitwise equal); the largest products are
+    # skipped to keep the sweep short.
+    qmm_exact = qmm_cases = 0
+    for M, K, N in itertools.product((1, 8, 17, 128, 3792),
+                                     (32, 200, 3584, 18944),
+                                     (8, 100, 3584, 4608, 18944)):
+        if M * K * N > 4e11:
+            continue
+        xq, wq, xs, ws = qmm_inputs(M, K, N)
+        for dname, od in dtypes.items():
+            out = quant_matmul(xq, wq, xs, ws, out_dtype=od)
+            want = ref.quant_matmul_ref(xq, wq, xs, ws, od)
+            check("quant_matmul", out, want, QMM_TOL, M=M, K=K, N=N,
+                  out_dtype=dname)
+            qmm_cases += 1
+            qmm_exact += bool(torch.equal(out, want))
+        del xq, wq, xs, ws
+    # strided rows and unaligned starts: the kernel's byte-wise loads
+    xq, wq, xs, ws = qmm_inputs(40, 210, 110)
+    xv, wv, wsv = xq[:, 3:203], wq[:200, 1:101], ws[1:101].contiguous()
+    out = quant_matmul(xv, wv, xs, wsv)
+    want = ref.quant_matmul_ref(xv, wv, xs, wsv)
+    check("quant_matmul", out, want, QMM_TOL, M=40, K=200, N=100,
+          out_dtype="float32", strided=True)
+    qmm_cases += 1
+    qmm_exact += bool(torch.equal(out, want))
     torch.cuda.synchronize()
     emit("kernels_sweep", cases=n_cases, failures=failures,
-         max_abs_err=worst, ssd_max_rel_err_vs_float64=worst_f64)
+         max_abs_err=worst, ssd_max_rel_err_vs_float64=worst_f64,
+         quant_matmul_cases=qmm_cases, quant_matmul_bitwise_equal=qmm_exact)
     if failures:
         raise AssertionError(f"{len(failures)} kernel cases out of "
                              f"tolerance: {failures[:5]}")
@@ -387,12 +453,56 @@ def phase_kernels(torch, card) -> list:
             lambda: ref.ssd_scan_ref(x, dt, A, Bm, Cm, chunk=chunk),
             None)            # no single PyTorch call computes the SSD scan
 
+    def qmm_at(tag, M, K, N):
+        """The int8 product as ``ops.quant_linear`` runs it (fp32 out).
+        The library call is ``torch._int_mm`` plus the same epilogue in
+        torch ops; it needs M > 16, so a smaller M is padded to 32 rows
+        outside the timed call.  It is timed on w as the op gets it
+        (row-major) and on a column-major copy, cuBLASLt's int8 layout."""
+        xq, wq, xs, ws = qmm_inputs(M, K, N)
+        out = quant_matmul(xq, wq, xs, ws)
+        want = ref.quant_matmul_ref(xq, wq, xs, ws)
+        err, oks[f"quant_matmul {tag}"] = _max_err(torch, out, want, QMM_TOL)
+        oks[f"quant_matmul {tag} bitwise"] = bool(torch.equal(out, want))
+        xp = xq if M > 16 else torch.cat([xq, xq.new_zeros(32 - M, K)])
+        w_cm = wq.t().contiguous().t()
+
+        def library(w):
+            def call():
+                acc = torch._int_mm(xp, w)[:M]
+                return acc.float() * xs[:, None] * ws[None, :]
+            return call
+
+        library_equal = bool(torch.equal(library(wq)(), want)
+                             and torch.equal(library(w_cm)(), want))
+        bound, by = _bound(2.0 * M * K * N,
+                           M * K + K * N + 4.0 * (M + N) + 4.0 * M * N,
+                           "int8")
+        row = time_row(dict(
+            name="quant_matmul", route="cuda", model=tag,
+            source="src/repro_torch/kernels/csrc/quant_matmul.cu",
+            replaces="src/repro/kernels/quant_matmul.py:46",
+            shape=f"{tag}: x_q [{M},{K}] w_q [{K},{N}] int8 -> fp32",
+            max_abs_err=max(err, worst["quant_matmul"]),
+            bound_ms=bound, bound_by=by),
+            lambda: quant_matmul(xq, wq, xs, ws),
+            lambda: ref.quant_matmul_ref(xq, wq, xs, ws), library(wq))
+        row["library"] = ("torch._int_mm + epilogue"
+                          + ("" if M > 16 else f" (M padded {M} -> 32)"))
+        row["library_equal"] = library_equal
+        row["library_ms_w_column_major"] = _time_ms(torch, library(w_cm),
+                                                    flush)
+        return row
+
     # one row per kernel at its main serving shape (qwen2-7b's attention,
-    # zamba2-7b's SSD); zamba2's hd-112 attention and mamba2's SSD beside
+    # zamba2-7b's SSD, qwen2-7b-int8's MLP up-projection at prefill and at
+    # a decode step); zamba2's hd-112 attention and mamba2's SSD beside
     B = SERVE_BATCH
     rows.append(flash_at(QWEN, B, 512, 28, 4, 128))
     rows.append(decode_at(QWEN, B, 28, 4, 128, 528))
     rows.append(ssd_at(ZAMBA, B, 474, 112, 64, 64, 128))
+    rows.append(qmm_at(QMM_PREFILL, B * 474, QMM_K, QMM_N))
+    rows.append(qmm_at(QMM_DECODE, B, QMM_K, QMM_N))
     extra.append(flash_at(ZAMBA, B, 512, 32, 32, 112))
     extra.append(decode_at(ZAMBA, B, 32, 32, 112, 528))
     extra.append(ssd_at(MAMBA, B, 474, 24, 64, 128, 128))
@@ -693,19 +803,30 @@ def phase_model(torch, card, name: str, small_layers: int):
     return model
 
 
+def _serve_prompts(seed: int, vocab: int) -> list:
+    """The serve batch's prompts: SERVE_BATCH lengths drawn from
+    PROMPT_LENS, then each prompt's tokens, from ``seed``."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(PROMPT_LENS[0], PROMPT_LENS[1] + 1, size=SERVE_BATCH)
+    return [rng.integers(0, vocab, size=int(n)).astype(np.int32)
+            for n in lens]
+
+
 def phase_serve(torch, card, model, seed: int) -> dict:
     import numpy as np
     from repro_torch.kernels import decode_attention as dmod
     from repro_torch.kernels import flash_attention as fmod
+    from repro_torch.kernels import quant_matmul as qmod
     from repro_torch.kernels import ssd_scan as smod
     from repro_torch.models.kvcache import num_attn_applications
     from repro_torch.serving.batcher import Batcher, ServeRequest
     from repro_torch.serving.engine import Engine, EngineConfig
 
-    rng = np.random.default_rng(seed)
     arch = model.arch
     V = arch.vocab_size
-    lens = rng.integers(PROMPT_LENS[0], PROMPT_LENS[1] + 1, size=SERVE_BATCH)
+    prompts = _serve_prompts(seed, V)
+    lens = np.array([len(p) for p in prompts])
     eng = Engine(model, EngineConfig(max_batch=SERVE_BATCH,
                                      max_seq=SERVE_MAX_SEQ))
     eng.generate(np.zeros((SERVE_BATCH, int(lens.max())), np.int32),
@@ -714,13 +835,11 @@ def phase_serve(torch, card, model, seed: int) -> dict:
     clock = [0.0]
     batcher = Batcher(eng, timeout_ms=1e9, max_new=SERVE_NEW,
                       clock=lambda: clock[0])
-    for i, n in enumerate(lens):
-        batcher.submit(ServeRequest(i, rng.integers(0, V, size=int(n))
-                                    .astype(np.int32),
-                                    deadline_s=1e9, submitted_s=0.0))
+    for i, p in enumerate(prompts):
+        batcher.submit(ServeRequest(i, p, deadline_s=1e9, submitted_s=0.0))
     torch.cuda.reset_peak_memory_stats()
     mods = {"flash_attention": fmod, "decode_attention": dmod,
-            "ssd_scan": smod}
+            "ssd_scan": smod, "quant_matmul": qmod}
     for mod in mods.values():
         mod.launches = 0
     done, walls = [], []
@@ -738,7 +857,8 @@ def phase_serve(torch, card, model, seed: int) -> dict:
     n_ssm = arch.num_layers if arch.ssm is not None else 0
     expect = {"flash_attention": n_attn * n_batches,
               "decode_attention": n_attn * n_batches * (SERVE_NEW - 1),
-              "ssd_scan": n_ssm * n_batches}
+              "ssd_scan": n_ssm * n_batches,
+              "quant_matmul": 0}     # no model serves int8 (Variant.quant)
     results_ok = all(r.result is not None and r.result.shape == (SERVE_NEW,)
                      and int(r.result.min()) >= 0
                      and int(r.result.max()) < V for r in done)
@@ -824,6 +944,316 @@ def phase_profile(torch, card, eng, S: int) -> None:
 
 
 # ---------------------------------------------------------------------------
+QMM_DENSE_TOL = 0.02         # int8 linear vs dense, tests/test_kernels.py:125
+# Projections whose inputs are a normalised hidden state or the attention
+# output (near-Gaussian rows); the MLP down-projection's input, the SwiGLU
+# product, has heavy-tailed rows (max |x| ~13x their rms), which per-row
+# int8 rounds ~2.7x as coarsely.  The JAX package's quant_linear reads above
+# 0.02 on such rows as well (tests/test_torch_quant.py, SwiGLU-like rows of
+# max/rms ~11, the two packages equal); this phase holds the down-projection
+# to bitwise equality with the plain version and to the rounding model.
+QMM_DENSE_HELD = ("wq", "wk", "wv", "wo", "wg", "wu")
+QMM_MODEL_TOL = 0.1          # measured vs rounding model, relative
+
+
+def _layer0_inputs(torch, model, run):
+    """The activations that layer 0's projections receive while ``run()``
+    drives the model, captured as they are handed to each matmul: a torch
+    function mode sees every ``x @ w`` whose ``w`` is (a view of) one of
+    the layer's weights.  Returns ({name: x}, {name: w as [K, N]})."""
+    from torch.overrides import TorchFunctionMode
+    blk = model.blocks[0]
+    weights = {"wq": blk.wq.flatten(1), "wk": blk.wk.flatten(1),
+               "wv": blk.wv.flatten(1), "wo": blk.wo.flatten(0, 1),
+               "wg": blk.wg, "wu": blk.wu, "wd": blk.wd}
+    by_ptr = {(w.data_ptr(), tuple(w.shape)): n for n, w in weights.items()}
+    seen = {}
+
+    class Capture(TorchFunctionMode):
+        def __torch_function__(self, func, types, args=(), kwargs=None):
+            if (getattr(func, "__name__", "") in ("matmul", "__matmul__")
+                    and len(args) == 2 and torch.is_tensor(args[1])):
+                name = by_ptr.get((args[1].data_ptr(), tuple(args[1].shape)))
+                if name is not None and name not in seen:
+                    seen[name] = args[0].detach().clone()
+            return func(*args, **(kwargs or {}))
+
+    with Capture():
+        out = run()
+    if set(seen) != set(weights):
+        raise AssertionError(f"captured {sorted(seen)} of {sorted(weights)}")
+    return seen, weights, out
+
+
+def phase_int8(torch, card, model, seed: int) -> dict:
+    """The int8 path on full-width qwen2-7b's layer 0: every projection's
+    weight quantised per output channel, run through ``ops.quant_linear``
+    on the inputs that layer really gets in one prefill of the serve batch
+    and in the decode step after it.  Each call must equal the plain
+    version, launch the kernel exactly once, come within QMM_MODEL_TOL of
+    the error that uniform int8 rounding predicts for its inputs, and (the
+    QMM_DENSE_HELD projections) within QMM_DENSE_TOL of the dense fp32
+    product.  Returns the launches per shape."""
+    import numpy as np
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import quant_matmul as qmod
+
+    prompts = _serve_prompts(seed, model.arch.vocab_size)
+    S = max(len(p) for p in prompts)
+    padded = np.zeros((SERVE_BATCH, S), np.int64)     # left-padded with 0
+    for i, p in enumerate(prompts):
+        padded[i, S - len(p):] = p
+    tokens = torch.as_tensor(padded, device=model.device)
+
+    def prefill():
+        return model.prefill(tokens, max_seq=SERVE_MAX_SEQ)
+
+    x_pre, weights, (logits, cache) = _layer0_inputs(torch, model, prefill)
+    tok = logits[:, -1].argmax(-1, keepdim=True)
+    x_dec, _, _ = _layer0_inputs(
+        torch, model, lambda: model.decode_step(cache, S, tok))
+    del cache, logits
+    results, launches, bad = {}, {}, []
+    for tag, inputs in ((QMM_PREFILL, x_pre), (QMM_DECODE, x_dec)):
+        qmod.launches = 0
+        for name, x in inputs.items():
+            w = weights[name]
+            w_q, w_s = ops.quantize_int8(w, axis=0)
+            n0 = qmod.launches
+            out = ops.quant_linear(x, w_q, w_s)
+            once = qmod.launches - n0 == 1
+            x2 = x.reshape(-1, x.shape[-1])
+            x_q, x_s = ref.quantize_int8(x2)
+            plain = ref.quant_matmul_ref(x_q, w_q, x_s, w_s).reshape(
+                out.shape).to(out.dtype)
+            dense = x2.float() @ w.float()
+            rel = float((out.reshape(dense.shape).float() - dense).norm()
+                        / dense.norm())
+            # uniform rounding: each x_q, w_q entry off by U(-s/2, s/2),
+            # the bf16 output by U(-2^-9, 2^-9) relative; independent
+            model_rel = float(torch.sqrt(
+                ((x_s.double() ** 2).sum() * w.double().square().sum()
+                 + (w_s.double() ** 2).sum() * x2.double().square().sum())
+                / 12 / dense.double().square().sum()
+                + (2.0 ** -18 / 3 if out.dtype == torch.bfloat16 else 0.0)))
+            row_peak = float((x2.float().abs().amax(-1)
+                              / x2.float().square().mean(-1).sqrt()
+                              .clamp_min(1e-30)).mean())
+            ok = {"equal_plain": bool(torch.equal(out, plain)),
+                  "one_launch": once,
+                  "vs_model": abs(rel / model_rel - 1.0) <= QMM_MODEL_TOL,
+                  "dense": (rel < QMM_DENSE_TOL if name in QMM_DENSE_HELD
+                            else None)}
+            results[f"{tag} {name}"] = dict(
+                M=x2.shape[0], K=x2.shape[1], N=w.shape[1],
+                rel_err_vs_dense=rel, rounding_model_rel_err=model_rel,
+                input_max_over_rms=row_peak, **ok)
+            if not all(v for v in ok.values() if v is not None):
+                bad.append(f"{tag} {name}: {ok}, rel {rel}, model "
+                           f"{model_rel}")
+        launches[tag] = qmod.launches
+    emit("int8", card=card["nvidia_smi"], arch=model.arch.name,
+         padded_prompt_len=S, dense_tol=QMM_DENSE_TOL,
+         dense_held=list(QMM_DENSE_HELD), model_tol=QMM_MODEL_TOL,
+         launches=launches, calls=results)
+    if bad:
+        raise AssertionError(f"int8 path: {bad}")
+    return launches
+
+
+class _Ledger:
+    """Runtime hooks: root arrivals, and per root the leaf outcomes
+    (completions and fan-weighted drops) filed under its id."""
+
+    def __init__(self):
+        self.arrivals = 0
+        self.outcomes = {}
+        self.drops = {}
+        self.dispatches = []
+
+    def on_arrival(self, app, task, now, queue_len):
+        self.arrivals += 1
+
+    def on_drop(self, app, task, reason, n, now, root_id=-1):
+        self.outcomes[root_id] = self.outcomes.get(root_id, 0) + n
+        self.drops[f"{task}:{reason}"] = self.drops.get(
+            f"{task}:{reason}", 0) + n
+
+    def on_complete(self, app, root_id, latency_ms, missed, now):
+        self.outcomes[root_id] = self.outcomes.get(root_id, 0) + 1
+
+    def on_dispatch(self, server, batch, now, service_s, queue_len):
+        self.dispatches.append((server.tup.task, len(batch), service_s))
+
+
+class _PerArch:
+    """An ExecutionBackend around another that files the kernel launches
+    of each service call under the arch it served (a call is synchronous,
+    so the counters' change during it is its own)."""
+
+    def __init__(self, inner, mods):
+        self.inner, self.mods = inner, mods
+        self.graphs, self.calls, self.launches = {}, {}, {}
+
+    def bind(self, graph, config, app=""):
+        self.graphs[app] = graph
+        self.inner.bind(graph, config, app)
+
+    def on_capacity_change(self, servers):
+        self.inner.on_capacity_change(servers)
+
+    def service_s(self, server, batch, now_s, rng):
+        graph = self.graphs[server.app]
+        arch = graph.tasks[server.tup.task].variant(server.tup.variant).arch
+        before = {k: m.launches for k, m in self.mods.items()}
+        service = self.inner.service_s(server, batch, now_s, rng)
+        per = self.launches.setdefault(arch, dict.fromkeys(self.mods, 0))
+        for k, m in self.mods.items():
+            per[k] += m.launches - before[k]
+        self.calls[arch] = self.calls.get(arch, 0) + 1
+        return service
+
+
+COMPOUND_APP = "social_media"
+COMPOUND_PLAN = {"ingest": "gemma-2b", "classify": "granite-3-2b",
+                 "caption": "qwen2-7b"}
+COMPOUND_BATCH, COMPOUND_RPS, COMPOUND_S = 8, 4.0, 10.0
+# Deadlines at 4x the app's 700 ms: one eager full-width hop of 16 new
+# tokens takes about half a second on the card, so at 1x the early-drop
+# rule drops every request at ingest and no leaf is served.  Attainment
+# within the app's own SLO is reported beside it.
+COMPOUND_SLO_SCALE = 4.0
+
+
+def phase_compound(torch, card, seed: int) -> None:
+    """The main path through the port's own control plane: the
+    social_media app served by ``repro_torch.runtime.ClusterRuntime`` on
+    ``EngineBackend(reduced=False)``, full-width gemma-2b, granite-3-2b and
+    qwen2-7b in bf16, one instance each at batch 8, under Poisson traffic
+    with deadlines at COMPOUND_SLO_SCALE times the app's SLO.
+    The plan is built by hand; each tuple's latency is one measured
+    service of a full batch (after the engine's warm-up), so the
+    runtime's early drop works from what the card does.  Before that, one
+    full-batch service per arch runs with every kernel call held against
+    its plain version on the same inputs (``_each_call_checked``), at the
+    shapes this path gives the kernels.  Every root arrival must end as
+    completed or dropped at each of its leaves, the queues must drain,
+    and each arch's launches must be one flash launch per layer per
+    service call and one decode launch per layer per decode step."""
+    import numpy as np
+    from types import SimpleNamespace
+    from repro_torch.core.apps import get_app
+    from repro_torch.core.milp import PlanConfig, TupleVar
+    from repro_torch.kernels import decode_attention as dmod
+    from repro_torch.kernels import flash_attention as fmod
+    from repro_torch.kernels import quant_matmul as qmod
+    from repro_torch.kernels import ssd_scan as smod
+    from repro_torch.runtime import ClusterRuntime, EngineBackend, Scenario
+
+    t_phase = time.monotonic()
+    graph = get_app(COMPOUND_APP)
+    leaves = len(graph.paths)
+    if any(f != 1.0 for f in graph.mult.values()):
+        raise AssertionError("the per-root accounting assumes fan-out 1")
+    backend = EngineBackend(reduced=False, max_batch=COMPOUND_BATCH,
+                            max_seq=512, prompt_len=256, max_new=SERVE_NEW)
+    backend.bind(graph, None)
+    torch.cuda.reset_peak_memory_stats()
+    rng = np.random.default_rng(seed)
+    counts, tuples, profiled, archs, checked, bad = {}, {}, {}, {}, {}, {}
+    for task, variant in COMPOUND_PLAN.items():
+        v = graph.tasks[task].variant(variant)
+        probe = SimpleNamespace(app="", tup=TupleVar(
+            task, variant, "h100", COMPOUND_BATCH, latency_ms=0.0,
+            throughput=0.0, cost=1, accuracy=v.accuracy))
+        full = [None] * COMPOUND_BATCH
+        backend.service_s(probe, full, 0.0, rng)      # builds and warms
+        archs[v.arch] = backend._engines[v.arch].model.arch
+        found = {}
+        with _each_call_checked(torch, found):
+            backend.service_s(probe, full, 0.0, rng)
+        checked[v.arch] = {k: {"calls": n, "max_abs_err": worst,
+                               "out_of_tol": out}
+                           for k, (n, worst, out) in found.items()}
+        wrong = _calls_in_tolerance(archs[v.arch], found, 1, SERVE_NEW - 1)
+        if wrong:
+            bad[v.arch] = wrong
+        service = backend.service_s(probe, full, 0.0, rng)
+        profiled[variant] = service
+        key = (task, variant, "h100", COMPOUND_BATCH)
+        tuples[key] = TupleVar(task, variant, "h100", COMPOUND_BATCH,
+                               latency_ms=service * 1e3,
+                               throughput=COMPOUND_BATCH / service, cost=1,
+                               accuracy=v.accuracy)
+        counts[key] = 1
+    cfg = PlanConfig(graph=graph, counts=counts, tuples=tuples,
+                     demand={t: COMPOUND_RPS for t in graph.tasks})
+    mods = {"flash_attention": fmod, "decode_attention": dmod,
+            "ssd_scan": smod, "quant_matmul": qmod}
+    counted = _PerArch(backend, mods)
+    ledger = _Ledger()
+    rt = ClusterRuntime(graph, cfg, counted, seed=seed, hooks=ledger)
+    for mod in mods.values():
+        mod.launches = 0
+    t0 = time.monotonic()
+    m = rt.run(Scenario.poisson(COMPOUND_RPS, duration_s=COMPOUND_S,
+                                warmup_s=0.0, slo_scale=COMPOUND_SLO_SCALE))
+    run_wall = time.monotonic() - t0
+    totals = {k: mod.launches for k, mod in mods.items()}
+    expect = {}
+    for arch_name, calls in counted.calls.items():
+        layers = archs[arch_name].num_layers
+        expect[arch_name] = {"flash_attention": layers * calls,
+                             "decode_attention":
+                                 layers * calls * (SERVE_NEW - 1),
+                             "ssd_scan": 0, "quant_matmul": 0}
+    left = sum(len(q) for q in rt.queues.values())
+    accounted = (ledger.arrivals > 0
+                 and len(ledger.outcomes) == ledger.arrivals
+                 and -1 not in ledger.outcomes
+                 and all(n == leaves for n in ledger.outcomes.values())
+                 and m.completions + m.dropped == leaves * ledger.arrivals
+                 and left == 0)
+    sums_ok = all(totals[k] == sum(c[k] for c in counted.launches.values())
+                  for k in mods)
+    lat = np.asarray(m.latencies_ms) if m.latencies_ms else np.zeros(1)
+    batches = {}
+    for task, n, _ in ledger.dispatches:
+        batches.setdefault(task, []).append(n)
+    emit("compound", card=card["nvidia_smi"], app=COMPOUND_APP,
+         plan={t: v for t, v in COMPOUND_PLAN.items()},
+         batch=COMPOUND_BATCH, rate_rps=COMPOUND_RPS,
+         scenario_s=COMPOUND_S, seed=seed,
+         profiled_service_s_batch8=profiled,
+         checked_vs_plain=checked, checked_out_of_tol=bad,
+         root_arrivals=ledger.arrivals, leaves_per_root=leaves,
+         completions=m.completions, missed=m.missed, dropped=m.dropped,
+         drops=ledger.drops, queued_at_end=left, accounted=accounted,
+         slo_scale=COMPOUND_SLO_SCALE,
+         slo_attainment=1.0 - m.violation_rate,
+         within_app_slo=sum(x <= graph.slo_latency_ms
+                            for x in m.latencies_ms)
+         / max(m.total_requests, 1),
+         e2e_p50_ms=float(np.percentile(lat, 50)),
+         e2e_p99_ms=float(np.percentile(lat, 99)),
+         service_calls=counted.calls, batch_sizes=batches,
+         launches=counted.launches, expected_launches=expect,
+         run_host_wall_s=run_wall,
+         phase_host_wall_s=time.monotonic() - t_phase,
+         max_memory_allocated_bytes=torch.cuda.max_memory_allocated())
+    if bad:
+        raise AssertionError(f"compound: kernel calls vs plain: {bad}")
+    if not accounted or m.completions <= 0:
+        raise AssertionError(
+            f"compound: {ledger.arrivals} arrivals, {len(ledger.outcomes)} "
+            f"roots with outcomes, {m.completions} completions + "
+            f"{m.dropped} dropped, {left} left in queues")
+    if counted.launches != expect or not sums_ok:
+        raise AssertionError(f"compound: launches {counted.launches} != "
+                             f"{expect} (totals {totals})")
+
+
+# ---------------------------------------------------------------------------
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0,
@@ -852,9 +1282,17 @@ def main(argv=None) -> int:
                  else _model(torch, name))
         launches[name], eng, S = phase_serve(torch, card, model, args.seed)
         phase_profile(torch, card, eng, S)
+        if name == QWEN:
+            int8_launches = phase_int8(torch, card, model, args.seed)
         del model, eng
         torch.cuda.empty_cache()
-    for row in rows:              # the serve run of the model row's shape
+    phase_compound(torch, card, args.seed)
+    for row in rows:
+        if row["name"] == "quant_matmul":   # no serve run calls it
+            row["launches"] = int8_launches[row["model"]]
+            row["launches_from"] = "int8 phase"
+            continue
+        # the serve run of the model row's shape
         row["launches"] = launches[row["model"]][row["name"]]
         row["launches_by_model"] = {m: c[row["name"]]
                                     for m, c in launches.items()}

@@ -21,7 +21,7 @@ from typing import Dict, Iterable, Optional
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
-SOURCES = ("flash_attention", "decode_attention", "ssd_scan")
+SOURCES = ("flash_attention", "decode_attention", "ssd_scan", "quant_matmul")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -36,6 +36,8 @@ _SIGNATURES = {
                          + [ctypes.c_float, _int, _ptr]),
     "ssd_scan": ("ssd_scan_launch",
                  [_ptr] * 8 + [_int] * 5 + [_i64] * 12 + [_ptr]),
+    "quant_matmul": ("quant_matmul_launch",
+                     [_ptr] * 5 + [_int] * 3 + [_i64] * 3 + [_int, _ptr]),
 }
 
 _libs: Dict[str, ctypes.CDLL] = {}

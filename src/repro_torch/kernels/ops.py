@@ -13,6 +13,7 @@ import torch
 
 from repro_torch.kernels import decode_attention as _decode
 from repro_torch.kernels import flash_attention as _flash
+from repro_torch.kernels import quant_matmul as _qmm
 from repro_torch.kernels import ref
 from repro_torch.kernels import ssd_scan as _ssd
 
@@ -56,3 +57,30 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         return _ssd.ssd_scan(x, dt, A, Bm, Cm, init_state=init_state)
     return ref.ssd_scan_ref(x, dt, A, Bm, Cm, chunk=chunk,
                             init_state=init_state)
+
+
+def quant_matmul(x_q: torch.Tensor, w_q: torch.Tensor, x_scale: torch.Tensor,
+                 w_scale: torch.Tensor, *,
+                 out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """int8 [M,K] x int8 [K,N] -> ``out_dtype`` [M,N] with row/col scales."""
+    if _on_cuda(x_q):
+        return _qmm.quant_matmul(x_q, w_q, x_scale, w_scale,
+                                 out_dtype=out_dtype)
+    return ref.quant_matmul_ref(x_q, w_q, x_scale, w_scale, out_dtype)
+
+
+def quantize_int8(x: torch.Tensor, axis: int = -1
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric int8 quantisation (plain PyTorch on either device, as the
+    JAX package computes it outside any kernel)."""
+    return ref.quantize_int8(x, axis)
+
+
+def quant_linear(x: torch.Tensor, w_q: torch.Tensor,
+                 w_scale: torch.Tensor) -> torch.Tensor:
+    """Dynamic-activation-quant linear: quantise x per row on the fly and
+    run the int8 product.  x: [..., K]; w_q: [K, N] int8; w_scale: [N]."""
+    shape = x.shape
+    x_q, x_scale = ref.quantize_int8(x.reshape(-1, shape[-1]), axis=-1)
+    out = quant_matmul(x_q, w_q, x_scale, w_scale, out_dtype=torch.float32)
+    return out.reshape(shape[:-1] + (w_q.shape[1],)).to(x.dtype)

@@ -5,7 +5,8 @@ against on the card.  Like ``repro.kernels.ref`` they are deliberately
 naive: the whole ``S x S`` score matrix, fp32 math (float64 for float64
 inputs), ``-1e30`` as the mask value.  ``ssd_scan_ref`` is the SSD's chunked dual form (the CPU path of
 ``ops.ssd_scan``); ``ssd_ref`` is its exact sequential recurrence, the
-oracle both are held against.
+oracle both are held against.  ``quant_matmul_ref`` and ``quantize_int8``
+are the int8 path's (``repro.kernels.ref``'s of the same names).
 """
 from __future__ import annotations
 
@@ -144,3 +145,30 @@ def ssd_ref(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         state = state * decay[..., None, None] + upd
         ys.append(torch.einsum("bhpn,bn->bhp", state, Cm[:, t]))
     return torch.stack(ys, dim=1), state
+
+
+def quant_matmul_ref(x_q: torch.Tensor, w_q: torch.Tensor,
+                     x_scale: torch.Tensor, w_scale: torch.Tensor,
+                     out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """int8 [M,K] x int8 [K,N] -> ``out_dtype`` [M,N] with a per-row
+    ``x_scale`` [M] and a per-column ``w_scale`` [N] (fp32).
+
+    The integer product is taken in float64, where it is exact (|acc| <=
+    127^2 K < 2^53) on either device: cuBLAS has no int32 matmul.  Then
+    ``(float32(acc) * x_scale) * w_scale`` in that order, as the kernel's
+    epilogue does."""
+    acc = x_q.double() @ w_q.double()
+    out = acc.float() * x_scale[:, None] * w_scale[None, :]
+    return out.to(out_dtype)
+
+
+def quantize_int8(x: torch.Tensor, axis: int = -1
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric int8 quantisation along ``axis``: (q int8, scale fp32)
+    with ``scale = max(amax, 1e-8) / 127`` and ``q = round(x / scale)``
+    (half to even) clamped to +-127."""
+    xf = x.float()
+    amax = xf.abs().amax(dim=axis)
+    scale = torch.clamp_min(amax, 1e-8) / 127.0
+    q = torch.clamp(torch.round(xf / scale.unsqueeze(axis)), -127, 127)
+    return q.to(torch.int8), scale

@@ -1,8 +1,11 @@
 """Execution backends of the port: HOW a dispatched batch gets served.
 
-Both satisfy ``repro.runtime.backend.ExecutionBackend`` structurally (same
-method names and arguments, no import), so the JAX package's unchanged
-``ClusterRuntime`` can drive the port's engines:
+The :class:`~repro_torch.runtime.cluster.ClusterRuntime` owns queues,
+batching, early drop and the event clock; a backend only answers "how long
+does THIS server take to serve THIS batch?" (:class:`ExecutionBackend`).
+Both backends below serve the port's own ``ClusterRuntime``, and they
+still fit the JAX package's ``ExecutionBackend`` protocol (same method
+names and arguments, no import), so its runtime can drive them too:
 
 * :class:`SimBackend` -- the profiled-latency lognormal model, draw for
   draw the reference's.
@@ -15,10 +18,44 @@ from __future__ import annotations
 import time
 import zlib
 from dataclasses import dataclass, field
-from typing import Any, Dict, Sequence
+from typing import (TYPE_CHECKING, Any, Dict, List, Protocol, Sequence,
+                    runtime_checkable)
 
 import numpy as np
 import torch
+
+if TYPE_CHECKING:   # pragma: no cover — typing only
+    from repro_torch.core.milp import PlanConfig
+    from repro_torch.core.taskgraph import TaskGraph
+    from repro_torch.runtime.metrics import Server
+
+
+@runtime_checkable
+class ExecutionBackend(Protocol):
+    """Data-plane contract consumed by :class:`ClusterRuntime`.
+
+    ``bind`` is called once per served app before the event loop starts
+    — a single-app runtime calls it once with that app's graph/config, a
+    multi-app runtime (``ClusterRuntime.multi``) once per co-located
+    app.  Backends that key state by graph should store it under
+    ``Server.app`` (every ``service_s`` call carries the owning app on
+    its server); see :class:`EngineBackend` for the pattern.
+    """
+
+    def bind(self, graph: "TaskGraph", config: "PlanConfig",
+             app: str = "") -> None:
+        """Called once per app before serving starts (build engines,
+        caches...).  ``app`` is the co-located app's tag ("" single-app)."""
+        ...
+
+    def service_s(self, server: "Server", batch: Sequence[Any],
+                  now_s: float, rng: np.random.Generator) -> float:
+        """Service time (seconds) for ``server`` executing ``batch``."""
+        ...
+
+    def on_capacity_change(self, servers: List["Server"]) -> None:
+        """Called after failure-injection / elasticity changed the fleet."""
+        ...
 
 
 @dataclass

@@ -1,5 +1,6 @@
 """The port's dense-family models (``repro_torch.models``) against the JAX
 package's ``Model``, on the CPU in fp32 with converted weights."""
+import ast
 import dataclasses
 import os
 import subprocess
@@ -220,3 +221,44 @@ def test_port_imports_neither_jax_nor_repro():
     proc = subprocess.run([sys.executable, "-c", code], env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
+
+
+def _imports_of(source: str, filename: str = "<probe>"):
+    """Every module an ``import`` or ``from ... import`` in ``source``
+    names, wherever it stands: at the top, inside a function, under
+    ``TYPE_CHECKING``.  A relative import names its package's module."""
+    names = []
+    for node in ast.walk(ast.parse(source, filename=filename)):
+        if isinstance(node, ast.Import):
+            names += [(node.lineno, a.name) for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            if node.level:
+                names.append((node.lineno, "repro_torch"))
+            elif node.module:
+                names.append((node.lineno, node.module))
+    return names
+
+
+def test_port_sources_import_neither_jax_nor_repro():
+    """A scan of the source of every module of the port and of the chip
+    smoke script: no import of ``jax`` or of the JAX package ``repro``
+    anywhere, not even one that never runs at import time."""
+    root = os.path.join(os.path.dirname(__file__), "..")
+    pkg = os.path.join(root, "src", "repro_torch")
+    paths = [os.path.join(d, f) for d, _, fs in os.walk(pkg)
+             for f in fs if f.endswith(".py")]
+    paths.append(os.path.join(root, "chip_smoke.py"))
+    assert len(paths) > 40
+    bad = []
+    for p in paths:
+        with open(p, encoding="utf-8") as f:
+            bad += [f"{os.path.relpath(p, root)}:{line}: {name}"
+                    for line, name in _imports_of(f.read(), p)
+                    if name.split(".")[0] in ("jax", "jaxlib", "repro")]
+    assert not bad, bad
+    # the scan sees imports inside functions and under TYPE_CHECKING
+    probe = ("from typing import TYPE_CHECKING\n"
+             "if TYPE_CHECKING:\n    from repro.core.milp import PlanConfig\n"
+             "def f():\n    import jax.numpy as jnp\n")
+    assert [n for _, n in _imports_of(probe)][1:] == ["repro.core.milp",
+                                                      "jax.numpy"]
