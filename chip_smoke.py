@@ -12,16 +12,20 @@ Phases, each printing one JSON line; any failure exits non-zero:
 3. kernels -- each kernel against its plain PyTorch version on the card:
               the int8 GEMM over ragged M, K, N and both output dtypes;
               attention over a sweep of head dims (64, 112, 128, 256), GQA
-              groups, dtypes, causal flags and ragged lengths; the SSD scan
+              groups, dtypes, causal flags and ragged lengths (flash: query
+              lengths around the 128-row tile and causal offsets; decode:
+              cache lengths at the split-KV boundaries +- 1), and the bf16
+              flash wrapper refusing a misaligned stride; the SSD scan
               against its dual form, its sequential recurrence and that
               recurrence in float64 over head dims, state dims, ragged
               lengths, batches, with and without an initial state, both
               ranges of A (around -1; -1 to -16 as the models set it), and
               split in two with the state carried; then at the serving
-              shapes of qwen2-7b, zamba2-7b and mamba2-130m (and
-              qwen2-7b-int8's MLP up-projection at prefill and decode) the
-              kernel, plain and library times (CUDA events, L2 flushed
-              before each launch) and the roofline bound.
+              shapes of qwen2-7b, zamba2-7b, mamba2-130m, gemma-2b and
+              granite-3-2b (and qwen2-7b-int8's MLP up-projection at
+              prefill and decode) the kernel, plain and library times (CUDA
+              events, L2 flushed before each launch) and the roofline
+              bound.
 4. model   -- full-width qwen2-7b and zamba2-7b in bf16 (random weights
               from a seeded generator): a prefill through the kernels with
               every kernel call also held against its plain version on the
@@ -63,10 +67,12 @@ Phases, each printing one JSON line; any failure exits non-zero:
               launches are exact.
 
 The second-to-last line is ``{"kernels": [...]}``, one row per kernel at
-its main serving shape (two for quant_matmul: prefill and decode),
+its main serving shape (two for quant_matmul: prefill and decode; the
+attention kernels also at gemma-2b's and granite-3-2b's compound shapes),
 ``launches`` from the serve run of the model whose shape the row names
-(``launches_by_model`` gives all three), or for quant_matmul from the int8
-phase at that shape; the last is
+(``launches_by_model`` gives all three), from the compound phase for
+gemma-2b and granite-3-2b, or for quant_matmul from the int8 phase at that
+shape; the last is
 ``{"ok": true, "device": {...}}``.  Exits 2 with no result when
 there is no CUDA device or no ``src/repro_torch`` beside this script.
 """
@@ -90,6 +96,7 @@ PEAK_BYTES_S = 3.35e12
 TOLS = {"float32": 2e-5, "bfloat16": 2e-2}   # tests/test_kernels.py:14-15
 
 QWEN, ZAMBA, MAMBA = "qwen2-7b", "zamba2-7b", "mamba2-130m"
+GEMMA, GRANITE = "gemma-2b", "granite-3-2b"     # the compound phase's others
 SERVE_BATCH, SERVE_MAX_SEQ, SERVE_NEW = 8, 1024, 16
 PROMPT_LENS = (256, 512)
 SSD_TOL = 2e-3                               # tests/test_kernels.py:74-77
@@ -126,13 +133,31 @@ def phase_device(torch) -> dict:
 
 
 def phase_build() -> None:
+    """Build every kernel source; ptxas' report per kernel, and the tensor-
+    core instructions (HGMMA, from wgmma) in each library's SASS where the
+    toolkit's ``cuobjdump`` is there to read it."""
+    import shutil
     from repro_torch.kernels import build
     t0 = time.monotonic()
     logs = build.build_all()
+    seconds = round(time.monotonic() - t0, 2)
     ptxas = {name: [ln.strip() for ln in log.splitlines()
                     if "ptxas info" in ln or "spill" in ln]
              for name, log in logs.items()}
-    emit("build", seconds=round(time.monotonic() - t0, 2), ptxas=ptxas)
+    cuobjdump = (shutil.which("cuobjdump")
+                 or str(Path(build.nvcc()).with_name("cuobjdump")))
+    hgmma = {}
+    if Path(cuobjdump).exists():
+        for name in build.SOURCES:
+            sass = subprocess.run(
+                [cuobjdump, "-sass", str(build.library_path(name))],
+                capture_output=True, text=True, timeout=120).stdout
+            forms = sorted({ln.split(";")[0].split("*/")[-1].split()[0]
+                            for ln in sass.splitlines() if "HGMMA" in ln})
+            lines = [ln for ln in sass.splitlines() if "HGMMA" in ln]
+            hgmma[name] = {"lines": len(lines), "forms": forms,
+                           "b_transposed": sum("tnspB" in ln for ln in lines)}
+    emit("build", seconds=seconds, ptxas=ptxas, sass_hgmma=hgmma)
 
 
 # ---------------------------------------------------------------------------
@@ -217,12 +242,15 @@ def _ssd_flop_bytes(B, S, nh, hd, ds, with_init: bool):
 def phase_kernels(torch, card) -> list:
     import torch.nn.functional as F
     from repro_torch.kernels import ref
-    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels import flash_attention as fmod
+    from repro_torch.kernels.decode_attention import (decode_attention,
+                                                      split_plan)
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.quant_matmul import quant_matmul
     from repro_torch.kernels.ssd_scan import ssd_scan
 
     dev = torch.device("cuda")
+    sm_count = torch.cuda.get_device_properties(dev).multi_processor_count
     gen = torch.Generator(device=dev).manual_seed(0)
 
     def randn(*shape, dtype=torch.float32):
@@ -260,8 +288,11 @@ def phase_kernels(torch, card) -> list:
         if not ok:
             failures.append(dict(kernel=kernel, err=err, **case))
 
-    # flash: hd x G x causal x dtype, cycling through ragged (Sq, Skv)
-    seqs = [(500, 500), (64, 192), (37, 37), (200, 333)]
+    # flash: hd x G x causal x dtype, cycling through ragged (Sq, Skv):
+    # query lengths around the bf16 kernel's 128-row tile, and Sq < Skv
+    # (causal rows at an offset)
+    seqs = [(500, 500), (64, 192), (37, 37), (200, 333), (127, 127),
+            (129, 129), (128, 300), (129, 257)]
     case = 0
     for hd in (64, 112, 128, 256):
         for G in (1, 4, 7, 8):
@@ -278,6 +309,38 @@ def phase_kernels(torch, card) -> list:
                           ref.flash_attention_ref(q, k, v, causal=causal),
                           TOLS[dname], hd=hd, G=G, causal=causal,
                           dtype=dname, Sq=Sq, Skv=Skv)
+    # bf16 flash on a view whose head stride is not a whole 16 bytes: the
+    # wrapper refuses it (TMA) and launches nothing
+    base = randn(1, 64, 2, 68, dtype=torch.bfloat16)
+    qv = base[..., :64]              # head stride 68 elements = 136 bytes
+    n0 = fmod.launches
+    try:
+        flash_attention(qv, qv, qv)
+        failures.append(dict(kernel="flash_attention", case="misaligned "
+                             "stride accepted"))
+    except ValueError:
+        pass
+    if fmod.launches != n0:
+        failures.append(dict(kernel="flash_attention", case="misaligned "
+                             "stride counted a launch"))
+    n_cases += 1
+    # decode: cache lengths at the split-KV boundaries +- 1 of each plan
+    # (zamba2's, qwen2's and gemma-2b's groups on a 1024-position cache)
+    for (B, KV, G, hd), dname in itertools.product(
+            ((8, 32, 1, 112), (8, 4, 7, 128), (8, 1, 8, 256), (2, 1, 8, 64)),
+            dtypes):
+        S, dt = SERVE_MAX_SEQ, dtypes[dname]
+        q = randn(B, 1, KV * G, hd, dtype=dt)
+        kc = randn(B, S, KV, hd, dtype=dt)
+        vc = randn(B, S, KV, hd, dtype=dt)
+        sl = split_plan(B, KV, S, sm_count)[0]
+        for cl in sorted({c for c in (1, 63, 64, 65, sl - 1, sl, sl + 1,
+                                      2 * sl - 1, 2 * sl + 1, 528, S)
+                          if 1 <= c <= S}):
+            check("decode_attention", decode_attention(q, kc, vc, cl),
+                  ref.decode_attention_ref(q, kc, vc, cl), TOLS[dname],
+                  hd=hd, G=G, KV=KV, dtype=dname, cache_len=cl,
+                  split=split_plan(B, KV, cl, sm_count))
     # decode: hd x G x fill x dtype on a ragged cache of 1000 positions
     for hd in (64, 112, 128, 256):
         for G in (1, 4, 7, 8):
@@ -410,6 +473,7 @@ def phase_kernels(torch, card) -> list:
         bound, by = _bound(4.0 * B * H * hd * cl,
                            2.0 * (2 * B * cl * KV * hd + 2 * q1.numel()),
                            "bfloat16")
+        split_len, n_splits = split_plan(B, KV, cl, sm_count)
         return time_row(dict(
             name="decode_attention", route="cuda", model=tag,
             source="src/repro_torch/kernels/csrc/decode_attention.cu",
@@ -417,7 +481,8 @@ def phase_kernels(torch, card) -> list:
             shape=f"{tag}: q [{B},1,{H},{hd}] caches [{B},{SERVE_MAX_SEQ},"
                   f"{KV},{hd}] bf16 cache_len {cl}",
             max_abs_err=max(err, worst["decode_attention"]),
-            bound_ms=bound, bound_by=by),
+            bound_ms=bound, bound_by=by,
+            split_len=split_len, split_blocks=n_splits * KV * B),
             lambda: decode_attention(q1, kc, vc, cl),
             lambda: ref.decode_attention_ref(q1, kc, vc, cl),
             lambda: F.scaled_dot_product_attention(q1t, kct, vct,
@@ -505,6 +570,12 @@ def phase_kernels(torch, card) -> list:
     rows.append(qmm_at(QMM_DECODE, B, QMM_K, QMM_N))
     extra.append(flash_at(ZAMBA, B, 512, 32, 32, 112))
     extra.append(decode_at(ZAMBA, B, 32, 32, 112, 528))
+    # the compound phase's other two archs: gemma-2b (MQA, hd 256) and
+    # granite-3-2b (hd 64)
+    rows.append(flash_at(GEMMA, B, 512, 8, 1, 256))
+    rows.append(decode_at(GEMMA, B, 8, 1, 256, 528))
+    rows.append(flash_at(GRANITE, B, 512, 32, 8, 64))
+    rows.append(decode_at(GRANITE, B, 32, 8, 64, 528))
     extra.append(ssd_at(MAMBA, B, 474, 24, 64, 128, 128))
     emit("kernels_serving_shapes", card=card["nvidia_smi"], rows=rows,
          also=extra, ok=oks)
@@ -916,11 +987,17 @@ def phase_profile(torch, card, eng, S: int) -> None:
         evs = [e for e in prof.key_averages()
                if e.device_type == DeviceType.CUDA]
         busy = sum(e.self_device_time_total for e in evs) / 1e3
-        top = sorted(evs, key=lambda e: e.self_device_time_total,
-                     reverse=True)[:8]
+        ranked = sorted(evs, key=lambda e: e.self_device_time_total,
+                        reverse=True)
+        # the port's own kernels whatever their rank (decode_attention is
+        # two: the split and the merge kernel)
+        ours = [e for e in ranked if any(f"{k}_kernel" in e.key for k in (
+            "flash_attention_bf16", "flash_attention_fp32", "decode_split",
+            "decode_merge", "ssd_scan", "quant_matmul"))]
         return busy, [{"name": e.key[:90], "calls": e.count,
                        "device_ms": e.self_device_time_total / 1e3}
-                      for e in top]
+                      for e in ranked[:8] + [e for e in ours
+                                             if e not in ranked[:8]]]
 
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     with profile(activities=acts) as p_prefill:
@@ -1125,7 +1202,7 @@ COMPOUND_BATCH, COMPOUND_RPS, COMPOUND_S = 8, 4.0, 10.0
 COMPOUND_SLO_SCALE = 4.0
 
 
-def phase_compound(torch, card, seed: int) -> None:
+def phase_compound(torch, card, seed: int) -> dict:
     """The main path through the port's own control plane: the
     social_media app served by ``repro_torch.runtime.ClusterRuntime`` on
     ``EngineBackend(reduced=False)``, full-width gemma-2b, granite-3-2b and
@@ -1139,7 +1216,8 @@ def phase_compound(torch, card, seed: int) -> None:
     shapes this path gives the kernels.  Every root arrival must end as
     completed or dropped at each of its leaves, the queues must drain,
     and each arch's launches must be one flash launch per layer per
-    service call and one decode launch per layer per decode step."""
+    service call and one decode launch per layer per decode step.  Returns
+    the launches per arch and kernel."""
     import numpy as np
     from types import SimpleNamespace
     from repro_torch.core.apps import get_app
@@ -1251,6 +1329,7 @@ def phase_compound(torch, card, seed: int) -> None:
     if counted.launches != expect or not sums_ok:
         raise AssertionError(f"compound: launches {counted.launches} != "
                              f"{expect} (totals {totals})")
+    return counted.launches
 
 
 # ---------------------------------------------------------------------------
@@ -1286,11 +1365,17 @@ def main(argv=None) -> int:
             int8_launches = phase_int8(torch, card, model, args.seed)
         del model, eng
         torch.cuda.empty_cache()
-    phase_compound(torch, card, args.seed)
+    compound_launches = phase_compound(torch, card, args.seed)
     for row in rows:
         if row["name"] == "quant_matmul":   # no serve run calls it
             row["launches"] = int8_launches[row["model"]]
             row["launches_from"] = "int8 phase"
+            continue
+        if row["model"] in (GEMMA, GRANITE):  # served in the compound phase
+            # an arch whose every request was dropped served no call
+            row["launches"] = compound_launches.get(row["model"], {}).get(
+                row["name"], 0)
+            row["launches_from"] = "compound phase"
             continue
         # the serve run of the model row's shape
         row["launches"] = launches[row["model"]][row["name"]]

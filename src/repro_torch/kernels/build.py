@@ -32,7 +32,7 @@ _SIGNATURES = {
                         [_ptr] * 4 + [_int] * 6 + [_i64] * 12
                         + [ctypes.c_float, _int, _int, _ptr]),
     "decode_attention": ("decode_attention_launch",
-                         [_ptr] * 4 + [_int] * 5 + [_i64] * 10
+                         [_ptr] * 5 + [_int] * 6 + [_i64] * 10
                          + [ctypes.c_float, _int, _ptr]),
     "ssd_scan": ("ssd_scan_launch",
                  [_ptr] * 8 + [_int] * 5 + [_i64] * 12 + [_ptr]),

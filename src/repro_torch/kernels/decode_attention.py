@@ -1,12 +1,15 @@
-"""Wrapper of the CUDA flash-decode kernel (``csrc/decode_attention.cu``).
+"""Wrapper of the CUDA split-KV flash-decode (``csrc/decode_attention.cu``).
 
-Checks what the kernel takes, allocates the output and launches on the
-current stream.  ``launches`` counts the launches made through it, so a run
-can show that its path went through the kernel.
+Checks what the kernels take, plans the split of the cache on the host
+(:func:`split_plan`), allocates the output and the fp32 scratch of the
+partials and launches on the current stream.  One call enqueues two
+kernels: the split kernel and, with more than one split, the merge kernel.
+``launches`` counts the calls made through it (one per call), so a run can
+show that its path went through the kernels.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -15,15 +18,45 @@ from repro_torch.kernels import build
 HEAD_DIMS = (64, 112, 128, 256)
 MAX_GROUP = 8          # query heads per kv head the kernel serves
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+SPLIT_UNIT = 64        # a split is a whole number of 64-position tiles
+BLOCKS_PER_SM = 2      # the split kernel's grid aims at this many blocks an SM
 
 launches = 0
+_sm_counts: Dict[int, int] = {}
+
+
+def split_plan(B: int, KV: int, cache_len: int,
+               sm_count: int) -> Tuple[int, int]:
+    """(split length, number of splits) for a cache of ``cache_len``
+    positions: the splits cover ``[0, cache_len)`` once, none is empty, the
+    length is a multiple of 64, and splits x KV x B reaches
+    ``BLOCKS_PER_SM * sm_count`` blocks wherever ``ceil(cache_len / 64) x B
+    x KV`` allows it (else every split is one tile)."""
+    if min(B, KV, cache_len, sm_count) < 1:
+        raise ValueError(f"split_plan: needs positive sizes, got B {B}, KV "
+                         f"{KV}, cache_len {cache_len}, sm_count {sm_count}")
+    tiles = -(-cache_len // SPLIT_UNIT)
+    wanted = -(-BLOCKS_PER_SM * sm_count // (B * KV))
+    split_len = SPLIT_UNIT * max(1, tiles // wanted)
+    return split_len, -(-cache_len // split_len)
+
+
+def _sm_count(device: torch.device) -> int:
+    index = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    if index not in _sm_counts:
+        _sm_counts[index] = torch.cuda.get_device_properties(
+            index).multi_processor_count
+    return _sm_counts[index]
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                      v_cache: torch.Tensor, cache_len: int, *,
                      scale: Optional[float] = None) -> torch.Tensor:
     """q: [B,1,H,hd]; caches [B,S,KV,hd] on one CUDA device -> [B,1,H,hd],
-    attending to the first ``cache_len`` positions (a host int, 1..S)."""
+    attending to the first ``cache_len`` positions (a host int, 1..S).
+    The caches' bases must be 16-byte aligned and their strides whole
+    multiples of 16 bytes (the kernel copies 16 bytes at a time)."""
     global launches
     if q.dim() != 4 or k_cache.dim() != 4 or k_cache.shape != v_cache.shape:
         raise ValueError(f"decode_attention: bad shapes q {tuple(q.shape)}, "
@@ -55,14 +88,26 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                          f"[1, {S}]")
     if q.stride(3) != 1 or k_cache.stride(3) != 1 or v_cache.stride(3) != 1:
         raise ValueError("decode_attention: head_dim must be contiguous")
+    per16 = 16 // q.element_size()
+    for name, c in (("k_cache", k_cache), ("v_cache", v_cache)):
+        if c.data_ptr() % 16 or any(st % per16 for st in c.stride()[:3]):
+            raise ValueError(f"decode_attention: {name} needs a 16-byte-"
+                             f"aligned base and strides of whole 16 bytes, "
+                             f"got address {c.data_ptr():#x}, strides "
+                             f"{c.stride()}")
     scale = scale if scale is not None else hd ** -0.5
+    split_len, n_splits = split_plan(B, KV, cache_len, _sm_count(q.device))
     lib = build.library("decode_attention")
     out = torch.empty((B, 1, H, hd), dtype=q.dtype, device=q.device)
+    part = (torch.empty(B * KV * n_splits * (H // KV) * (hd + 2),
+                        dtype=torch.float32, device=q.device)
+            if n_splits > 1 else None)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         code = lib.decode_attention_launch(
             q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-            out.data_ptr(), B, H, KV, hd, cache_len,
+            out.data_ptr(), None if part is None else part.data_ptr(),
+            B, H, KV, hd, cache_len, split_len,
             q.stride(0), q.stride(2),
             k_cache.stride(0), k_cache.stride(1), k_cache.stride(2),
             v_cache.stride(0), v_cache.stride(1), v_cache.stride(2),

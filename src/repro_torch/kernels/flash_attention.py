@@ -2,7 +2,10 @@
 
 Checks what the kernel takes, allocates the output and launches on the
 current stream.  ``launches`` counts the launches made through it, so a run
-can show that its path went through the kernel.
+can show that its path went through the kernel.  bfloat16 runs the wgmma
+body fed by TMA, which needs 16-byte-aligned bases and strides (a tensor
+that fails raises ``ValueError``; nothing is copied); float32 runs the
+FP32-FMA body.
 """
 from __future__ import annotations
 
@@ -23,7 +26,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     scale: Optional[float] = None) -> torch.Tensor:
     """q: [B,Sq,H,hd]; k,v: [B,Skv,KV,hd] on one CUDA device -> [B,Sq,H,hd].
 
-    Any S; the head_dim stride must be 1 (other strides are free)."""
+    Any S; the head_dim stride must be 1.  Other strides are free in
+    float32; in bfloat16 the bases must be 16-byte aligned and the strides
+    whole multiples of 16 bytes (``ValueError`` otherwise)."""
     global launches
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
         raise ValueError(f"flash_attention: bad shapes q {tuple(q.shape)}, "
@@ -46,6 +51,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          f" got Sq {Sq}, Skv {Skv}")
     if q.stride(3) != 1 or k.stride(3) != 1 or v.stride(3) != 1:
         raise ValueError("flash_attention: head_dim must be contiguous")
+    if q.dtype == torch.bfloat16:
+        qs, ks, vs = (_tma_strides(n, t) for n, t in (("q", q), ("k", k),
+                                                       ("v", v)))
+    else:
+        qs, ks, vs = (t.stride()[:3] for t in (q, k, v))
     scale = scale if scale is not None else hd ** -0.5
     lib = build.library("flash_attention")
     out = torch.empty((B, Sq, H, hd), dtype=q.dtype, device=q.device)
@@ -54,11 +64,25 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         code = lib.flash_attention_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             B, Sq, Skv, H, KV, hd,
-            q.stride(0), q.stride(1), q.stride(2),
-            k.stride(0), k.stride(1), k.stride(2),
-            v.stride(0), v.stride(1), v.stride(2),
+            *qs, *ks, *vs,
             out.stride(0), out.stride(1), out.stride(2),
             float(scale), int(causal), DTYPES[q.dtype], stream)
     build.check("flash_attention", code)
     launches += 1
     return out
+
+
+def _tma_strides(name: str, t: torch.Tensor) -> tuple:
+    """Strides of dims 0-2 of a bf16 [B, S, heads, hd] tensor as the TMA
+    map takes them.  TMA reads a 16-byte-aligned base with strides that are
+    multiples of 16 bytes (8 elements); the stride of a dim of size 1 is
+    never stepped, so it is given its contiguous value.  Raises
+    ``ValueError`` on a tensor that fails."""
+    _, S, H, hd = t.shape
+    strides = tuple(st if n > 1 else c for st, n, c in
+                    zip(t.stride()[:3], t.shape[:3], (S * H * hd, H * hd, hd)))
+    if t.data_ptr() % 16 or any(st % 8 for st in strides):
+        raise ValueError(f"flash_attention: bf16 {name} needs a 16-byte-aligned"
+                         f" base and strides of whole 16 bytes, got address "
+                         f"{t.data_ptr():#x}, strides {t.stride()}")
+    return strides

@@ -3,7 +3,9 @@
 They are the CPU path of ``ops`` and the oracles the CUDA kernels are held
 against on the card.  Like ``repro.kernels.ref`` they are deliberately
 naive: the whole ``S x S`` score matrix, fp32 math (float64 for float64
-inputs), ``-1e30`` as the mask value.  ``ssd_scan_ref`` is the SSD's chunked dual form (the CPU path of
+inputs), ``-1e30`` as the mask value.  ``decode_attention_split_ref``
+is the split-KV algebra of the decode kernels (for the tests).
+``ssd_scan_ref`` is the SSD's chunked dual form (the CPU path of
 ``ops.ssd_scan``); ``ssd_ref`` is its exact sequential recurrence, the
 oracle both are held against.  ``quant_matmul_ref`` and ``quantize_int8``
 are the int8 path's (``repro.kernels.ref``'s of the same names).
@@ -53,6 +55,40 @@ def decode_attention_ref(q: torch.Tensor, k_cache: torch.Tensor,
     s = s.masked_fill(~valid, NEG_INF)
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bkgs,bskd->bkgd", p, v_cache.to(f))
+    return o.reshape(B, 1, H, hd).to(q.dtype)
+
+
+def decode_attention_split_ref(q: torch.Tensor, k_cache: torch.Tensor,
+                               v_cache: torch.Tensor, cache_len: int,
+                               split_len: int, *,
+                               scale: Optional[float] = None) -> torch.Tensor:
+    """:func:`decode_attention_ref` computed the way the split-KV kernels
+    compute it (used by the tests only): for each split of ``split_len``
+    positions of ``[0, cache_len)`` the partial softmax m_i (row max), l_i
+    (sum of e^(s - m_i)) and acc_i (their weighted sum of V), then
+    ``acc = sum_i e^(m_i - m) acc_i`` and ``l = sum_i e^(m_i - m) l_i`` with
+    m the largest m_i, and ``acc / max(l, 1e-30)``."""
+    B, S, KV, hd = k_cache.shape
+    H = q.shape[2]
+    g = H // KV
+    scale = scale if scale is not None else hd ** -0.5
+    f = torch.promote_types(q.dtype, torch.float32)
+    qf = q.to(f)[:, 0].reshape(B, KV, g, hd) * scale
+    ms, ls, accs = [], [], []
+    for start in range(0, cache_len, split_len):
+        end = min(start + split_len, cache_len)
+        s = torch.einsum("bkgd,bskd->bkgs", qf, k_cache[:, start:end].to(f))
+        m = s.amax(dim=-1)
+        p = torch.exp(s - m[..., None])
+        ms.append(m)
+        ls.append(p.sum(dim=-1))
+        accs.append(torch.einsum("bkgs,bskd->bkgd", p,
+                                 v_cache[:, start:end].to(f)))
+    m_i = torch.stack(ms)
+    w = torch.exp(m_i - m_i.amax(dim=0))
+    l = (w * torch.stack(ls)).sum(dim=0)
+    acc = (w[..., None] * torch.stack(accs)).sum(dim=0)
+    o = acc / torch.clamp_min(l, 1e-30)[..., None]
     return o.reshape(B, 1, H, hd).to(q.dtype)
 
 

@@ -120,6 +120,88 @@ def test_decode_plain_matches_pallas(jx, fill):
     np.testing.assert_allclose(got, np.asarray(pallas), **TOL)
 
 
+@pytest.mark.parametrize("B,KV", [(1, 1), (8, 1), (8, 4), (8, 8), (8, 32),
+                                  (3, 2), (64, 8), (1, 300)])
+def test_split_plan_covers_the_cache(B, KV):
+    """The split-KV plan over every cache_len up to 1,024: splits of a
+    multiple of 64 positions cover [0, cache_len) once with none empty, and
+    the grid reaches 2 blocks an SM (264 on 132 SMs) wherever 64-position
+    splits allow it (else every split is one tile)."""
+    sm = 132
+    for cl in range(1, 1025):
+        split_len, n = dmod.split_plan(B, KV, cl, sm)
+        assert split_len % 64 == 0 and split_len >= 64
+        starts = range(0, n * split_len, split_len)
+        assert (n - 1) * split_len < cl <= n * split_len, (cl, split_len, n)
+        assert all(min(s + split_len, cl) > s for s in starts)
+        tiles = -(-cl // 64)
+        if tiles * B * KV >= 2 * sm:
+            assert n * B * KV >= 2 * sm, (cl, split_len, n)
+        else:
+            assert split_len == 64 and n == tiles
+
+
+def test_split_plan_refuses_empty_sizes():
+    for args in [(0, 1, 10, 132), (1, 0, 10, 132), (1, 1, 0, 132),
+                 (1, 1, 10, 0)]:
+        with pytest.raises(ValueError, match="positive"):
+            dmod.split_plan(*args)
+
+
+@pytest.mark.parametrize("B,S,KV,G,hd,cl,sm", [
+    (2, 256, 4, 7, 128, 200, 132),   # 4 splits of 64, the last of 8
+    (1, 512, 1, 8, 64, 500, 132),    # MQA, 8 splits, the last of 52
+    (2, 512, 2, 4, 64, 450, 4),      # 2 splits of 256, the last of 194
+    (2, 512, 2, 4, 64, 300, 2),      # one split of 320 over 300
+    (2, 128, 2, 4, 64, 1, 132),      # cache_len 1
+    (1, 256, 2, 1, 112, 129, 132),   # MHA at hd 112, a last split of 1
+])
+def test_decode_split_merge_matches_jax(jx, B, S, KV, G, hd, cl, sm):
+    """The split kernels' algebra (per-split partial softmax, then the
+    rescaled merge) against the JAX oracle and the Pallas kernel
+    (interpret mode), fp32, on the plan ``split_plan`` makes."""
+    split_len, n = dmod.split_plan(B, KV, cl, sm)
+    q, kc, vc = _normal(6, (B, 1, KV * G, hd), (B, S, KV, hd), (B, S, KV, hd))
+    got = ref.decode_attention_split_ref(*_t(q, kc, vc), cl,
+                                         split_len).numpy()
+    args = (jx.jnp.asarray(q), jx.jnp.asarray(kc), jx.jnp.asarray(vc),
+            jx.jnp.int32(cl))
+    np.testing.assert_allclose(got, np.asarray(jx.ref.decode_attention_ref(
+        *args)), **TOL)
+    np.testing.assert_allclose(got, np.asarray(jx.decode(
+        *args, block_kv=128, interpret=True)), **TOL)
+    # and against the one-pass plain version the CPU path runs
+    np.testing.assert_allclose(got, ops.decode_attention(
+        *_t(q, kc, vc), cl).numpy(), **TOL)
+
+
+@pytest.mark.parametrize("shape,view,ok", [
+    ((2, 64, 4, 128), None, True),                 # contiguous
+    ((1, 1, 4, 112), None, True),                  # hd 112: 224-byte rows
+    ((2, 64, 4, 136), (slice(None),) * 3 + (slice(0, 128),), True),
+    ((2, 64, 4, 132), (slice(None),) * 3 + (slice(0, 128),), False),
+    ((2, 64, 4, 128), (slice(None), slice(None), slice(None, None, 2)),
+     True),                                        # every other head
+    ((2, 65, 4, 64), (slice(None), slice(1, None)), True),  # offset 512 B
+    ((2, 64, 4, 65), (slice(None),) * 3 + (slice(1, 65),), False),
+])
+def test_flash_bf16_tma_alignment(shape, view, ok):
+    """The bf16 kernel reads through TMA: a 16-byte-aligned base and
+    strides of whole 16 bytes, or ``ValueError``; the stride of a size-1
+    dim is never stepped and is given its contiguous value."""
+    base = torch.zeros(shape, dtype=torch.bfloat16)
+    t = base if view is None else base[view]
+    if not ok:
+        with pytest.raises(ValueError, match="16-byte"):
+            fmod._tma_strides("q", t)
+        return
+    strides = fmod._tma_strides("q", t)
+    B, S, H, hd = t.shape
+    for st, n, st_t, c in zip(strides, t.shape, t.stride(),
+                              (S * H * hd, H * hd, hd)):
+        assert st == (st_t if n > 1 else c) and st % 8 == 0
+
+
 def test_wrappers_refuse_cpu_tensors():
     """The CUDA wrappers launch or raise; only ``ops`` picks the plain
     version, and only for a CPU tensor."""
@@ -148,7 +230,13 @@ def test_flash_kernel_matches_plain_on_gpu(dtype):
     tol = TOL if dtype == "float32" else BF16_TOL
     for (B, Sq, Skv, H, KV, hd) in [(2, 500, 500, 14, 2, 128),
                                     (1, 37, 101, 8, 1, 256),
-                                    (2, 64, 64, 4, 4, 64)]:
+                                    (2, 64, 64, 4, 4, 64),
+                                    (2, 200, 333, 8, 8, 112),  # hd 112
+                                    (1, 127, 127, 4, 1, 128),  # around the
+                                    (1, 128, 128, 4, 1, 128),  # 128-row
+                                    (1, 129, 129, 4, 1, 128),  # query tile
+                                    (2, 64, 192, 8, 2, 64),    # Sq < Skv
+                                    (1, 129, 300, 8, 4, 256)]:
         q, k, v = (x.to(dev, dt) for x in _t(*_normal(
             4, (B, Sq, H, hd), (B, Skv, KV, hd), (B, Skv, KV, hd))))
         for causal in (True, False):
@@ -166,14 +254,32 @@ def test_decode_kernel_matches_plain_on_gpu(dtype):
     dev = _cuda()
     dt = getattr(torch, dtype)
     tol = TOL if dtype == "float32" else BF16_TOL
+    sm = torch.cuda.get_device_properties(dev).multi_processor_count
     for (B, S, KV, G, hd) in [(8, 1024, 4, 7, 128), (3, 1000, 1, 8, 256),
-                              (2, 300, 4, 1, 64)]:
+                              (2, 300, 4, 1, 64), (8, 1024, 32, 1, 112)]:
         q, kc, vc = (x.to(dev, dt) for x in _t(*_normal(
             5, (B, 1, KV * G, hd), (B, S, KV, hd), (B, S, KV, hd))))
-        for cl in (1, S // 3, S):
+        sl = dmod.split_plan(B, KV, S, sm)[0]     # one split boundary
+        for cl in sorted({c for c in (1, 63, 64, 65, S // 3, sl - 1, sl,
+                                      sl + 1, S) if 1 <= c <= S}):
             n = dmod.launches
             got = dmod.decode_attention(q, kc, vc, cl)
             assert dmod.launches == n + 1
             want = ref.decode_attention_ref(q, kc, vc, cl)
             np.testing.assert_allclose(got.float().cpu().numpy(),
                                        want.float().cpu().numpy(), **tol)
+
+
+@pytest.mark.gpu
+def test_flash_bf16_refuses_misaligned_stride_on_gpu():
+    """A bf16 view whose head stride is 136 bytes cannot feed TMA: the
+    wrapper raises and counts no launch."""
+    dev = _cuda()
+    base = torch.zeros((1, 64, 2, 68), dtype=torch.bfloat16, device=dev)
+    q = base[..., :64]
+    n = fmod.launches
+    with pytest.raises(ValueError, match="16-byte"):
+        fmod.flash_attention(q, q, q)
+    assert fmod.launches == n
+    got = fmod.flash_attention(q.contiguous(), q.contiguous(), q.contiguous())
+    assert fmod.launches == n + 1 and got.shape == q.shape
