@@ -8,9 +8,14 @@ Phases, each printing one JSON line; any failure exits non-zero:
 1. device  -- the card's name and power limit (nvidia-smi) and the count.
 2. build   -- nvcc builds every kernel source of the port, one process per
               source, all started together; ptxas' registers, shared memory
-              and spills per kernel.
+              and spills per kernel (none allowed in the int8 GEMM and the
+              SSD scan), and the tensor-core instructions in each library's
+              SASS (the int8 GEMM must hold s8 wgmma, the SSD TF32 mma).
 3. kernels -- each kernel against its plain PyTorch version on the card:
-              the int8 GEMM over ragged M, K, N and both output dtypes;
+              the int8 GEMM on both layouts of w_q (K-major, its native
+              layout, and row-major) over ragged M, K, N (around the decode
+              and prefill bodies' tiles, and near K_MAX at the largest
+              sums) and both output dtypes, bitwise;
               attention over a sweep of head dims (64, 112, 128, 256), GQA
               groups, dtypes, causal flags and ragged lengths (flash: query
               lengths around the 128-row tile and causal offsets; decode:
@@ -23,9 +28,11 @@ Phases, each printing one JSON line; any failure exits non-zero:
               split in two with the state carried; then at the serving
               shapes of qwen2-7b, zamba2-7b, mamba2-130m, gemma-2b and
               granite-3-2b (and qwen2-7b-int8's MLP up-projection at
-              prefill and decode) the kernel, plain and library times (CUDA
-              events, L2 flushed before each launch) and the roofline
-              bound.
+              prefill and decode, on each layout of w_q) the kernel, plain
+              and library times (CUDA events, L2 flushed before each
+              launch; the int8 GEMM also after a flush that only reads)
+              and the roofline bound (the SSD's at the fp32-accurate
+              tensor-core rate, its FP32 FMA figure beside).
 4. model   -- full-width qwen2-7b and zamba2-7b in bf16 (random weights
               from a seeded generator): a prefill through the kernels with
               every kernel call also held against its plain version on the
@@ -50,10 +57,12 @@ Phases, each printing one JSON line; any failure exits non-zero:
               torch.profiler: device time by kernel and the device's idle
               share in each.
 7. int8    -- the int8 path on full-width qwen2-7b's layer 0: each of its
-              seven projection weights quantised per output channel and run
+              seven projection weights quantised per output channel, kept
+              K-major, and run
               through ops.quant_linear on the inputs the layer really gets
               in one prefill of the serve batch and the decode step after
-              it; each call equal to the plain version, one launch each,
+              it; each call equal to the plain version (and to the same
+              call on the row-major weight), one launch each,
               within 10 % of the error uniform int8 rounding predicts, and
               (all but the MLP down-projection, whose SwiGLU input is
               heavy-tailed) within 0.02 of the dense fp32 product.
@@ -67,7 +76,8 @@ Phases, each printing one JSON line; any failure exits non-zero:
               launches are exact.
 
 The second-to-last line is ``{"kernels": [...]}``, one row per kernel at
-its main serving shape (two for quant_matmul: prefill and decode; the
+its main serving shape (four for quant_matmul: prefill and decode, each
+on both layouts of w_q; the
 attention kernels also at gemma-2b's and granite-3-2b's compound shapes),
 ``launches`` from the serve run of the model whose shape the row names
 (``launches_by_model`` gives all three), from the compound phase for
@@ -91,7 +101,10 @@ ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
 # Published dense peaks of one H100 SXM (NVIDIA data sheet) at 700 W.
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12, "int8": 1979e12}
+# "fp32_tc": fp32-accurate products on the tensor cores, 3xTF32 (three
+# TF32 passes a product), the least time an fp32 SSD could take there.
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12, "int8": 1979e12,
+              "fp32_tc": 495e12 / 3}
 PEAK_BYTES_S = 3.35e12
 TOLS = {"float32": 2e-5, "bfloat16": 2e-2}   # tests/test_kernels.py:14-15
 
@@ -132,10 +145,20 @@ def phase_device(torch) -> dict:
     return card
 
 
+# Tensor-core instructions each redesigned library must hold in its SASS:
+# the int8 GEMM's wgmma with s8 operands (IGMMA ... S8.S8), the SSD's
+# mma.sync with TF32 operands (HMMA ... TF32).
+SASS_REQUIRED = {"quant_matmul": ("GMMA", "S8.S8"),
+                 "ssd_scan": ("HMMA", "TF32")}
+NO_SPILLS = ("quant_matmul", "ssd_scan")     # ptxas: 0 bytes spilled
+
+
 def phase_build() -> None:
     """Build every kernel source; ptxas' report per kernel, and the tensor-
-    core instructions (HGMMA, from wgmma) in each library's SASS where the
-    toolkit's ``cuobjdump`` is there to read it."""
+    core instructions (HGMMA/IGMMA from wgmma, HMMA/IMMA from mma.sync) in
+    each library's SASS (``cuobjdump``).  Fails if a kernel of NO_SPILLS
+    spills or a library lacks its SASS_REQUIRED instructions."""
+    import re
     import shutil
     from repro_torch.kernels import build
     t0 = time.monotonic()
@@ -144,20 +167,32 @@ def phase_build() -> None:
     ptxas = {name: [ln.strip() for ln in log.splitlines()
                     if "ptxas info" in ln or "spill" in ln]
              for name, log in logs.items()}
+    spilled = {name: [ln for ln in ptxas[name]
+                      if re.search(r"[1-9]\d* bytes spill", ln)]
+               for name in NO_SPILLS}
     cuobjdump = (shutil.which("cuobjdump")
                  or str(Path(build.nvcc()).with_name("cuobjdump")))
-    hgmma = {}
-    if Path(cuobjdump).exists():
-        for name in build.SOURCES:
-            sass = subprocess.run(
-                [cuobjdump, "-sass", str(build.library_path(name))],
-                capture_output=True, text=True, timeout=120).stdout
-            forms = sorted({ln.split(";")[0].split("*/")[-1].split()[0]
-                            for ln in sass.splitlines() if "HGMMA" in ln})
-            lines = [ln for ln in sass.splitlines() if "HGMMA" in ln]
-            hgmma[name] = {"lines": len(lines), "forms": forms,
-                           "b_transposed": sum("tnspB" in ln for ln in lines)}
-    emit("build", seconds=seconds, ptxas=ptxas, sass_hgmma=hgmma)
+    sass_mma = {}
+    for name in build.SOURCES:
+        sass = subprocess.run(
+            [cuobjdump, "-sass", str(build.library_path(name))],
+            capture_output=True, text=True, timeout=120, check=True).stdout
+        lines = [ln for ln in sass.splitlines()
+                 if re.search(r"\b[HI](G)?MMA\.", ln)]
+        forms = {}
+        for ln in lines:
+            form = ln.split(";")[0].split("*/")[-1].split()[0]
+            forms[form] = forms.get(form, 0) + 1
+        sass_mma[name] = {"lines": len(lines), "forms": forms,
+                          "b_transposed": sum("tnspB" in ln for ln in lines)}
+    required = {name: sum(n for f, n in sass_mma[name]["forms"].items()
+                          if all(part in f for part in parts))
+                for name, parts in SASS_REQUIRED.items()}
+    emit("build", seconds=seconds, ptxas=ptxas, sass_mma=sass_mma,
+         sass_required_lines=required, spills=spilled)
+    if any(spilled.values()) or not all(required.values()):
+        raise AssertionError(f"build: spills {spilled}, required SASS "
+                             f"lines {required}")
 
 
 # ---------------------------------------------------------------------------
@@ -177,17 +212,27 @@ def _rel_errs(got, exact) -> list:
             for g, e in zip(got, exact)]
 
 
-def _time_ms(torch, fn, flush, iters: int = 20) -> float:
+def _time_ms(torch, fn, flush, iters: int = 20, dirty: bool = True) -> float:
     """Mean device time of one ``fn`` call over ``iters`` calls, each
     between two CUDA events with the L2 cache flushed before it, after two
-    warm-up calls.
+    warm-up calls.  The flush writes ``flush`` (``dirty``: the call then
+    also pays for writing those lines back) or only reads it.
 
     A sleep kernel is queued first, so the host has queued every call
     before the card reaches the first: the events then bracket device work
     only, not the host's time to launch it.  If the sleep ended before the
     last call was queued, the card may have waited on the host, so the
     calls are timed again behind a sleep twice as long."""
+    sink = torch.empty((), dtype=torch.int64, device=flush.device)
+
+    def flush_l2():
+        if dirty:
+            flush.zero_()
+        else:
+            torch.sum(flush.view(torch.int64), 0, out=sink)
+
     for _ in range(2):
+        flush_l2()
         fn()
     torch.cuda.synchronize()
     cycles = 1 << 24                 # ~10 ms at 1.7 GHz
@@ -197,7 +242,7 @@ def _time_ms(torch, fn, flush, iters: int = 20) -> float:
         asleep.record()
         pairs = []
         for _ in range(iters):
-            flush.zero_()
+            flush_l2()
             e0 = torch.cuda.Event(enable_timing=True)
             e1 = torch.cuda.Event(enable_timing=True)
             e0.record()
@@ -246,8 +291,10 @@ def phase_kernels(torch, card) -> list:
     from repro_torch.kernels.decode_attention import (decode_attention,
                                                       split_plan)
     from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.quant_matmul import K_MAX as QMM_K_MAX
+    from repro_torch.kernels.quant_matmul import plan as qmm_plan
     from repro_torch.kernels.quant_matmul import quant_matmul
-    from repro_torch.kernels.ssd_scan import ssd_scan
+    from repro_torch.kernels.ssd_scan import slice_plan, ssd_scan
 
     dev = torch.device("cuda")
     sm_count = torch.cuda.get_device_properties(dev).multi_processor_count
@@ -390,38 +437,72 @@ def phase_kernels(torch, card) -> list:
             check("ssd_scan", torch.cat([y1, y2], 1), y, SSD_TOL,
                   part="split y", **cs)
             check("ssd_scan", s2, fin, SSD_TOL, part="split state", **cs)
-    # int8: M x K x N (ragged, the decode and prefill rows, qwen2-7b-int8's
-    # widths) x out dtype, each against the plain version (exact in
-    # practice: counted as bitwise equal); the largest products are
-    # skipped to keep the sweep short.
+    # int8: each product on both layouts of w_q (row-major, and K-major:
+    # the kernel's native layout), each against the plain version and
+    # required bitwise equal to it; the bodies the plan picked are counted.
     qmm_exact = qmm_cases = 0
+    qmm_paths = {}
+
+    def qmm_check(xq, wq, xs, ws, dnames=tuple(dtypes), **case):
+        nonlocal qmm_exact, qmm_cases
+        for layout, w in (("row", wq), ("k", wq.t().contiguous().t())):
+            path = qmm_plan(xq, w)
+            qmm_paths[path] = qmm_paths.get(path, 0) + 1
+            for dname in dnames:
+                od = dtypes[dname]
+                out = quant_matmul(xq, w, xs, ws, out_dtype=od)
+                want = ref.quant_matmul_ref(xq, wq, xs, ws, od)
+                check("quant_matmul", out, want, QMM_TOL, layout=layout,
+                      path=path, out_dtype=dname, **case)
+                qmm_cases += 1
+                equal = bool(torch.equal(out, want))
+                qmm_exact += equal
+                if not equal:
+                    failures.append(dict(kernel="quant_matmul", bitwise=False,
+                                         layout=layout, path=path,
+                                         out_dtype=dname, **case))
+
+    # M x K x N (ragged, the decode and prefill rows, qwen2-7b-int8's
+    # widths) x out dtype; the largest products are skipped to keep the
+    # sweep short.
     for M, K, N in itertools.product((1, 8, 17, 128, 3792),
                                      (32, 200, 3584, 18944),
                                      (8, 100, 3584, 4608, 18944)):
         if M * K * N > 4e11:
             continue
-        xq, wq, xs, ws = qmm_inputs(M, K, N)
-        for dname, od in dtypes.items():
-            out = quant_matmul(xq, wq, xs, ws, out_dtype=od)
-            want = ref.quant_matmul_ref(xq, wq, xs, ws, od)
-            check("quant_matmul", out, want, QMM_TOL, M=M, K=K, N=N,
-                  out_dtype=dname)
-            qmm_cases += 1
-            qmm_exact += bool(torch.equal(out, want))
-        del xq, wq, xs, ws
-    # strided rows and unaligned starts: the kernel's byte-wise loads
+        qmm_check(*qmm_inputs(M, K, N), M=M, K=K, N=N)
+    # ragged around the redesigned bodies' tiles: M around the decode
+    # body's widths (8 .. 64) and the prefill body's 128-row tiles, K past
+    # a 128-byte box (3600) and not a 16-byte multiple (200: the mma.sync
+    # body on either layout), N past a 64/256-column tile
+    for M, K, N in itertools.product((1, 8, 16, 17, 64, 65, 129, 3792),
+                                     (200, 3584, 3600), (100, 18944, 18950)):
+        qmm_check(*qmm_inputs(M, K, N), dnames=("float32",), M=M, K=K, N=N)
+    # near K_MAX with every product at +-127^2: the int32 sums (and the
+    # decode body's split-K partial sums) at their largest; K 131,056 is a
+    # 16-byte multiple (the TMA bodies), K_MAX itself is not
+    for M, K in ((8, 131056), (65, 131056), (3, QMM_K_MAX)):
+        xq, wq, xs, ws = qmm_inputs(M, K, 100)
+        xq.fill_(127)
+        wq.fill_(127)
+        wq[:, 1::2] = -127
+        qmm_check(xq, wq, xs, ws, dnames=("float32",), M=M, K=K, N=100,
+                  extreme=True)
+    # strided rows and unaligned starts: the mma.sync body's byte-wise loads
     xq, wq, xs, ws = qmm_inputs(40, 210, 110)
     xv, wv, wsv = xq[:, 3:203], wq[:200, 1:101], ws[1:101].contiguous()
-    out = quant_matmul(xv, wv, xs, wsv)
-    want = ref.quant_matmul_ref(xv, wv, xs, wsv)
-    check("quant_matmul", out, want, QMM_TOL, M=40, K=200, N=100,
-          out_dtype="float32", strided=True)
-    qmm_cases += 1
-    qmm_exact += bool(torch.equal(out, want))
+    for layout, w in (("row", wv), ("k", wq.t().contiguous()[1:101, :200].t())):
+        out = quant_matmul(xv, w, xs, wsv)
+        want = ref.quant_matmul_ref(xv, wv, xs, wsv)
+        check("quant_matmul", out, want, QMM_TOL, M=40, K=200, N=100,
+              out_dtype="float32", strided=True, layout=layout)
+        qmm_cases += 1
+        qmm_exact += bool(torch.equal(out, want))
     torch.cuda.synchronize()
     emit("kernels_sweep", cases=n_cases, failures=failures,
          max_abs_err=worst, ssd_max_rel_err_vs_float64=worst_f64,
-         quant_matmul_cases=qmm_cases, quant_matmul_bitwise_equal=qmm_exact)
+         quant_matmul_cases=qmm_cases, quant_matmul_bitwise_equal=qmm_exact,
+         quant_matmul_paths=qmm_paths)
     if failures:
         raise AssertionError(f"{len(failures)} kernel cases out of "
                              f"tolerance: {failures[:5]}")
@@ -504,8 +585,19 @@ def phase_kernels(torch, card) -> list:
         f64 = {"kernel": _rel_errs((y, fin), exact),
                "plain": _rel_errs(dual, exact)}
         oks[f"ssd {tag} vs float64"] = max(f64["kernel"]) <= SSD_F64_TOL
-        bound, by = _bound(*_ssd_flop_bytes(B, S, nh, hd, ds, False),
-                           "float32")
+        # The bound at the fp32-accurate tensor-core rate (the kernel's own
+        # route); the FP32 FMA figure beside it, named as such.
+        flop, nbytes = _ssd_flop_bytes(B, S, nh, hd, ds, False)
+        bound, by = _bound(flop, nbytes, "fp32_tc")
+        P = slice_plan(B, nh, hd, ds, sm_count)
+        # The same call at 4x B*nh blocks (slices of hd / 4), beside the
+        # wrapper's plan: held to the same limits and timed.
+        P4 = hd // 4
+        with _slice_width(P4):
+            y4, fin4 = ssd_scan(x, dt, A, Bm, Cm)
+            oks[f"ssd {tag} at P {P4} vs float64"] = (
+                max(_rel_errs((y4, fin4), exact)) <= SSD_F64_TOL)
+            ms_4x = _time_ms(torch, lambda: ssd_scan(x, dt, A, Bm, Cm), flush)
         return time_row(dict(
             name="ssd_scan", route="cuda", model=tag,
             source="src/repro_torch/kernels/csrc/ssd_scan.cu",
@@ -513,51 +605,65 @@ def phase_kernels(torch, card) -> list:
             shape=f"{tag}: x [{B},{S},{nh},{hd}] B/C [{B},{S},{ds}] fp32",
             max_abs_err=max(err, worst["ssd_scan"]),
             y_state_rel_err_vs_float64=f64,
-            bound_ms=bound, bound_by=by),
+            bound_ms=bound, bound_by=by,
+            bound_fp32_fma_ms=_bound(flop, nbytes, "float32")[0],
+            slice_width=P, blocks=B * nh * (hd // P), batch_x_heads=B * nh,
+            ms_at_4x_blocks={"slice_width": P4, "blocks": 4 * B * nh,
+                             "ms": ms_4x}),
             lambda: ssd_scan(x, dt, A, Bm, Cm),
             lambda: ref.ssd_scan_ref(x, dt, A, Bm, Cm, chunk=chunk),
             None)            # no single PyTorch call computes the SSD scan
 
     def qmm_at(tag, M, K, N):
-        """The int8 product as ``ops.quant_linear`` runs it (fp32 out).
-        The library call is ``torch._int_mm`` plus the same epilogue in
-        torch ops; it needs M > 16, so a smaller M is padded to 32 rows
-        outside the timed call.  It is timed on w as the op gets it
-        (row-major) and on a column-major copy, cuBLASLt's int8 layout."""
+        """The int8 product as ``ops.quant_linear`` runs it (fp32 out), one
+        row per layout of w_q: K-major (the kernel's native layout; the
+        weight is quantised once and kept so, outside any timed call) and
+        row-major.  The library call is ``torch._int_mm`` plus the same
+        epilogue in torch ops on the same layout (K-major is cuBLASLt's
+        int8 layout); it needs M > 16, so a smaller M is padded to 32 rows
+        outside the timed call."""
         xq, wq, xs, ws = qmm_inputs(M, K, N)
-        out = quant_matmul(xq, wq, xs, ws)
         want = ref.quant_matmul_ref(xq, wq, xs, ws)
-        err, oks[f"quant_matmul {tag}"] = _max_err(torch, out, want, QMM_TOL)
-        oks[f"quant_matmul {tag} bitwise"] = bool(torch.equal(out, want))
         xp = xq if M > 16 else torch.cat([xq, xq.new_zeros(32 - M, K)])
-        w_cm = wq.t().contiguous().t()
-
-        def library(w):
-            def call():
-                acc = torch._int_mm(xp, w)[:M]
-                return acc.float() * xs[:, None] * ws[None, :]
-            return call
-
-        library_equal = bool(torch.equal(library(wq)(), want)
-                             and torch.equal(library(w_cm)(), want))
         bound, by = _bound(2.0 * M * K * N,
                            M * K + K * N + 4.0 * (M + N) + 4.0 * M * N,
                            "int8")
-        row = time_row(dict(
-            name="quant_matmul", route="cuda", model=tag,
-            source="src/repro_torch/kernels/csrc/quant_matmul.cu",
-            replaces="src/repro/kernels/quant_matmul.py:46",
-            shape=f"{tag}: x_q [{M},{K}] w_q [{K},{N}] int8 -> fp32",
-            max_abs_err=max(err, worst["quant_matmul"]),
-            bound_ms=bound, bound_by=by),
-            lambda: quant_matmul(xq, wq, xs, ws),
-            lambda: ref.quant_matmul_ref(xq, wq, xs, ws), library(wq))
-        row["library"] = ("torch._int_mm + epilogue"
-                          + ("" if M > 16 else f" (M padded {M} -> 32)"))
-        row["library_equal"] = library_equal
-        row["library_ms_w_column_major"] = _time_ms(torch, library(w_cm),
-                                                    flush)
-        return row
+        out_rows = []
+        for layout, w in (("K-major", wq.t().contiguous().t()),
+                          ("row-major", wq)):
+            label = f"{tag} {layout}"
+            out = quant_matmul(xq, w, xs, ws)
+            err, oks[f"quant_matmul {label}"] = _max_err(torch, out, want,
+                                                         QMM_TOL)
+            oks[f"quant_matmul {label} bitwise"] = bool(torch.equal(out,
+                                                                    want))
+
+            def library(w=w):
+                acc = torch._int_mm(xp, w)[:M]
+                return acc.float() * xs[:, None] * ws[None, :]
+
+            row = time_row(dict(
+                name="quant_matmul", route="cuda", model=tag, layout=layout,
+                source="src/repro_torch/kernels/csrc/quant_matmul.cu",
+                replaces="src/repro/kernels/quant_matmul.py:46",
+                shape=f"{tag}: x_q [{M},{K}] w_q [{K},{N}] {layout} int8 "
+                      f"-> fp32",
+                body=qmm_plan(xq, w),
+                max_abs_err=max(err, worst["quant_matmul"]),
+                bound_ms=bound, bound_by=by),
+                lambda w=w: quant_matmul(xq, w, xs, ws),
+                lambda: ref.quant_matmul_ref(xq, wq, xs, ws), library)
+            row["library"] = (f"torch._int_mm + epilogue, w_q {layout}"
+                              + ("" if M > 16 else f" (M padded {M} -> 32)"))
+            # the same with a flush that leaves no dirty lines in L2 to
+            # write back during the call
+            row["ms_read_flush"] = _time_ms(torch, lambda w=w: quant_matmul(
+                xq, w, xs, ws), flush, dirty=False)
+            row["library_ms_read_flush"] = _time_ms(torch, library, flush,
+                                                    dirty=False)
+            row["library_equal"] = bool(torch.equal(library(), want))
+            out_rows.append(row)
+        return out_rows
 
     # one row per kernel at its main serving shape (qwen2-7b's attention,
     # zamba2-7b's SSD, qwen2-7b-int8's MLP up-projection at prefill and at
@@ -566,8 +672,8 @@ def phase_kernels(torch, card) -> list:
     rows.append(flash_at(QWEN, B, 512, 28, 4, 128))
     rows.append(decode_at(QWEN, B, 28, 4, 128, 528))
     rows.append(ssd_at(ZAMBA, B, 474, 112, 64, 64, 128))
-    rows.append(qmm_at(QMM_PREFILL, B * 474, QMM_K, QMM_N))
-    rows.append(qmm_at(QMM_DECODE, B, QMM_K, QMM_N))
+    rows.extend(qmm_at(QMM_PREFILL, B * 474, QMM_K, QMM_N))
+    rows.extend(qmm_at(QMM_DECODE, B, QMM_K, QMM_N))
     extra.append(flash_at(ZAMBA, B, 512, 32, 32, 112))
     extra.append(decode_at(ZAMBA, B, 32, 32, 112, 528))
     # the compound phase's other two archs: gemma-2b (MQA, hd 256) and
@@ -675,6 +781,19 @@ def _calls_in_tolerance(arch, found: dict, prefills: int, steps: int):
     if calls != expect or bad:
         return f"calls {calls} (expected {expect}), out of tolerance {bad}"
     return None
+
+
+@contextlib.contextmanager
+def _slice_width(P: int):
+    """Within the block, the SSD wrapper gives every block a slice of P
+    columns of hd, whatever its plan would pick."""
+    from repro_torch.kernels import ssd_scan as smod
+    plan = smod.slice_plan
+    smod.slice_plan = lambda *args: P
+    try:
+        yield
+    finally:
+        smod.slice_plan = plan
 
 
 @contextlib.contextmanager
@@ -990,10 +1109,12 @@ def phase_profile(torch, card, eng, S: int) -> None:
         ranked = sorted(evs, key=lambda e: e.self_device_time_total,
                         reverse=True)
         # the port's own kernels whatever their rank (decode_attention is
-        # two: the split and the merge kernel)
+        # two: the split and the merge kernel; ssd_scan two: C B^T and the
+        # scan)
         ours = [e for e in ranked if any(f"{k}_kernel" in e.key for k in (
             "flash_attention_bf16", "flash_attention_fp32", "decode_split",
-            "decode_merge", "ssd_scan", "quant_matmul"))]
+            "decode_merge", "ssd_cb", "ssd_scan", "quant_matmul_wgmma",
+            "quant_matmul_small", "quant_matmul_mma", "dequant"))]
         return busy, [{"name": e.key[:90], "calls": e.count,
                        "device_ms": e.self_device_time_total / 1e3}
                       for e in ranked[:8] + [e for e in ours
@@ -1064,13 +1185,15 @@ def _layer0_inputs(torch, model, run):
 
 def phase_int8(torch, card, model, seed: int) -> dict:
     """The int8 path on full-width qwen2-7b's layer 0: every projection's
-    weight quantised per output channel, run through ``ops.quant_linear``
-    on the inputs that layer really gets in one prefill of the serve batch
-    and in the decode step after it.  Each call must equal the plain
-    version, launch the kernel exactly once, come within QMM_MODEL_TOL of
-    the error that uniform int8 rounding predicts for its inputs, and (the
-    QMM_DENSE_HELD projections) within QMM_DENSE_TOL of the dense fp32
-    product.  Returns the launches per shape."""
+    weight quantised per output channel and kept K-major (the kernel's
+    native layout), run through ``ops.quant_linear`` on the inputs that
+    layer really gets in one prefill of the serve batch and in the decode
+    step after it.  Each call must equal the plain version, launch the
+    kernel exactly once, come within QMM_MODEL_TOL of the error that
+    uniform int8 rounding predicts for its inputs, and (the QMM_DENSE_HELD
+    projections) within QMM_DENSE_TOL of the dense fp32 product; the same
+    call on the row-major weight must give the same bits.  Returns the
+    launches per shape and layout."""
     import numpy as np
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels import quant_matmul as qmod
@@ -1090,15 +1213,26 @@ def phase_int8(torch, card, model, seed: int) -> dict:
     x_dec, _, _ = _layer0_inputs(
         torch, model, lambda: model.decode_step(cache, S, tok))
     del cache, logits
+    # Each weight is quantised once and kept K-major (the kernel's native
+    # layout); the row-major copy runs too and must give the same bits.
+    quantised = {}
+    for name, w in weights.items():
+        w_q, w_s = ops.quantize_int8(w, axis=0)
+        quantised[name] = (w_q.t().contiguous().t(), w_q, w_s)
     results, launches, bad = {}, {}, []
     for tag, inputs in ((QMM_PREFILL, x_pre), (QMM_DECODE, x_dec)):
-        qmod.launches = 0
+        launches[tag] = {"K-major": 0, "row-major": 0}
         for name, x in inputs.items():
             w = weights[name]
-            w_q, w_s = ops.quantize_int8(w, axis=0)
+            w_km, w_q, w_s = quantised[name]
             n0 = qmod.launches
-            out = ops.quant_linear(x, w_q, w_s)
+            out = ops.quant_linear(x, w_km, w_s)
             once = qmod.launches - n0 == 1
+            launches[tag]["K-major"] += qmod.launches - n0
+            n0 = qmod.launches
+            same_row_major = bool(torch.equal(ops.quant_linear(x, w_q, w_s),
+                                              out))
+            launches[tag]["row-major"] += qmod.launches - n0
             x2 = x.reshape(-1, x.shape[-1])
             x_q, x_s = ref.quantize_int8(x2)
             plain = ref.quant_matmul_ref(x_q, w_q, x_s, w_s).reshape(
@@ -1117,7 +1251,7 @@ def phase_int8(torch, card, model, seed: int) -> dict:
                               / x2.float().square().mean(-1).sqrt()
                               .clamp_min(1e-30)).mean())
             ok = {"equal_plain": bool(torch.equal(out, plain)),
-                  "one_launch": once,
+                  "one_launch": once, "row_major_equal": same_row_major,
                   "vs_model": abs(rel / model_rel - 1.0) <= QMM_MODEL_TOL,
                   "dense": (rel < QMM_DENSE_TOL if name in QMM_DENSE_HELD
                             else None)}
@@ -1128,7 +1262,6 @@ def phase_int8(torch, card, model, seed: int) -> dict:
             if not all(v for v in ok.values() if v is not None):
                 bad.append(f"{tag} {name}: {ok}, rel {rel}, model "
                            f"{model_rel}")
-        launches[tag] = qmod.launches
     emit("int8", card=card["nvidia_smi"], arch=model.arch.name,
          padded_prompt_len=S, dense_tol=QMM_DENSE_TOL,
          dense_held=list(QMM_DENSE_HELD), model_tol=QMM_MODEL_TOL,
@@ -1195,11 +1328,17 @@ COMPOUND_APP = "social_media"
 COMPOUND_PLAN = {"ingest": "gemma-2b", "classify": "granite-3-2b",
                  "caption": "qwen2-7b"}
 COMPOUND_BATCH, COMPOUND_RPS, COMPOUND_S = 8, 4.0, 10.0
-# Deadlines at 4x the app's 700 ms: one eager full-width hop of 16 new
-# tokens takes about half a second on the card, so at 1x the early-drop
-# rule drops every request at ingest and no leaf is served.  Attainment
-# within the app's own SLO is reported beside it.
+# Deadlines at 4x the app's 700 ms at least: one eager full-width hop of
+# 16 new tokens takes about half a second on the card, so at 1x the
+# early-drop rule drops every request at ingest and no leaf is served.
+# An eager service is bound by the host, whose speed varies from machine
+# to machine by 2x and more (granite-3-2b's batch took 0.64-1.30 s), so
+# the deadline also leaves COMPOUND_PATH_SLACK times the longest path's
+# service measured just before the run; with less than about 2x every
+# root may be dropped at ingest.  Attainment within the app's own SLO is
+# reported beside it.
 COMPOUND_SLO_SCALE = 4.0
+COMPOUND_PATH_SLACK = 3.0
 
 
 def phase_compound(torch, card, seed: int) -> dict:
@@ -1207,7 +1346,9 @@ def phase_compound(torch, card, seed: int) -> dict:
     social_media app served by ``repro_torch.runtime.ClusterRuntime`` on
     ``EngineBackend(reduced=False)``, full-width gemma-2b, granite-3-2b and
     qwen2-7b in bf16, one instance each at batch 8, under Poisson traffic
-    with deadlines at COMPOUND_SLO_SCALE times the app's SLO.
+    with deadlines at COMPOUND_SLO_SCALE times the app's SLO, or at
+    COMPOUND_PATH_SLACK times the longest path's measured service where
+    that is longer.
     The plan is built by hand; each tuple's latency is one measured
     service of a full batch (after the engine's warm-up), so the
     runtime's early drop works from what the card does.  Before that, one
@@ -1266,6 +1407,10 @@ def phase_compound(torch, card, seed: int) -> dict:
         counts[key] = 1
     cfg = PlanConfig(graph=graph, counts=counts, tuples=tuples,
                      demand={t: COMPOUND_RPS for t in graph.tasks})
+    longest_path_s = max(sum(profiled[COMPOUND_PLAN[t]] for t in path)
+                         for path in graph.paths)
+    slo_scale = max(COMPOUND_SLO_SCALE, COMPOUND_PATH_SLACK * longest_path_s
+                    / (graph.slo_latency_ms / 1e3))
     mods = {"flash_attention": fmod, "decode_attention": dmod,
             "ssd_scan": smod, "quant_matmul": qmod}
     counted = _PerArch(backend, mods)
@@ -1275,7 +1420,7 @@ def phase_compound(torch, card, seed: int) -> dict:
         mod.launches = 0
     t0 = time.monotonic()
     m = rt.run(Scenario.poisson(COMPOUND_RPS, duration_s=COMPOUND_S,
-                                warmup_s=0.0, slo_scale=COMPOUND_SLO_SCALE))
+                                warmup_s=0.0, slo_scale=slo_scale))
     run_wall = time.monotonic() - t0
     totals = {k: mod.launches for k, mod in mods.items()}
     expect = {}
@@ -1307,7 +1452,7 @@ def phase_compound(torch, card, seed: int) -> dict:
          root_arrivals=ledger.arrivals, leaves_per_root=leaves,
          completions=m.completions, missed=m.missed, dropped=m.dropped,
          drops=ledger.drops, queued_at_end=left, accounted=accounted,
-         slo_scale=COMPOUND_SLO_SCALE,
+         longest_path_service_s=longest_path_s, slo_scale=slo_scale,
          slo_attainment=1.0 - m.violation_rate,
          within_app_slo=sum(x <= graph.slo_latency_ms
                             for x in m.latencies_ms)
@@ -1368,7 +1513,7 @@ def main(argv=None) -> int:
     compound_launches = phase_compound(torch, card, args.seed)
     for row in rows:
         if row["name"] == "quant_matmul":   # no serve run calls it
-            row["launches"] = int8_launches[row["model"]]
+            row["launches"] = int8_launches[row["model"]][row["layout"]]
             row["launches_from"] = "int8 phase"
             continue
         if row["model"] in (GEMMA, GRANITE):  # served in the compound phase

@@ -35,12 +35,14 @@ _SIGNATURES = {
                          [_ptr] * 5 + [_int] * 6 + [_i64] * 10
                          + [ctypes.c_float, _int, _ptr]),
     "ssd_scan": ("ssd_scan_launch",
-                 [_ptr] * 8 + [_int] * 5 + [_i64] * 12 + [_ptr]),
+                 [_ptr] * 9 + [_int] * 6 + [_i64] * 12 + [_ptr]),
     "quant_matmul": ("quant_matmul_launch",
-                     [_ptr] * 5 + [_int] * 3 + [_i64] * 3 + [_int, _ptr]),
+                     [_ptr] * 6 + [_int] * 3 + [_i64] * 3 + [_int] * 3
+                     + [_ptr]),
 }
 
 _libs: Dict[str, ctypes.CDLL] = {}
+_sm_counts: Dict[int, int] = {}
 _lock = threading.Lock()
 
 
@@ -108,6 +110,17 @@ def library(name: str) -> ctypes.CDLL:
             err.restype = ctypes.c_char_p
             _libs[name] = lib
         return lib
+
+
+def sm_count(device) -> int:
+    """The number of SMs of a CUDA device (a ``torch.device``), cached."""
+    import torch
+    index = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    if index not in _sm_counts:
+        _sm_counts[index] = torch.cuda.get_device_properties(
+            index).multi_processor_count
+    return _sm_counts[index]
 
 
 def check(name: str, code: int) -> None:

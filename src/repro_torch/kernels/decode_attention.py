@@ -9,7 +9,7 @@ show that its path went through the kernels.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -22,7 +22,6 @@ SPLIT_UNIT = 64        # a split is a whole number of 64-position tiles
 BLOCKS_PER_SM = 2      # the split kernel's grid aims at this many blocks an SM
 
 launches = 0
-_sm_counts: Dict[int, int] = {}
 
 
 def split_plan(B: int, KV: int, cache_len: int,
@@ -39,15 +38,6 @@ def split_plan(B: int, KV: int, cache_len: int,
     wanted = -(-BLOCKS_PER_SM * sm_count // (B * KV))
     split_len = SPLIT_UNIT * max(1, tiles // wanted)
     return split_len, -(-cache_len // split_len)
-
-
-def _sm_count(device: torch.device) -> int:
-    index = device.index if device.index is not None \
-        else torch.cuda.current_device()
-    if index not in _sm_counts:
-        _sm_counts[index] = torch.cuda.get_device_properties(
-            index).multi_processor_count
-    return _sm_counts[index]
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
@@ -96,7 +86,8 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                              f"got address {c.data_ptr():#x}, strides "
                              f"{c.stride()}")
     scale = scale if scale is not None else hd ** -0.5
-    split_len, n_splits = split_plan(B, KV, cache_len, _sm_count(q.device))
+    split_len, n_splits = split_plan(B, KV, cache_len,
+                                     build.sm_count(q.device))
     lib = build.library("decode_attention")
     out = torch.empty((B, 1, H, hd), dtype=q.dtype, device=q.device)
     part = (torch.empty(B * KV * n_splits * (H // KV) * (hd + 2),

@@ -1,7 +1,9 @@
 """Wrapper of the CUDA SSD-scan kernel (``csrc/ssd_scan.cu``).
 
-Checks what the kernel takes, allocates the outputs and launches on the
-current stream.  ``launches`` counts the launches made through it, so a run
+Checks what the kernel takes, picks the width of the head-dim slice each
+block owns (:func:`slice_plan`), allocates the outputs and the scratch of
+each chunk's C B^T, and launches on the current stream (a first kernel for
+C B^T, then the scan; one call is one counted launch).  ``launches`` counts the launches made through it, so a run
 can show that its path went through the kernel.
 """
 from __future__ import annotations
@@ -15,8 +17,37 @@ from repro_torch.kernels import build
 HEAD_DIMS = (16, 32, 64)
 STATE_DIMS = (16, 32, 64, 128)
 CHUNK = 64             # rows per chunk inside the kernel; any S is masked
+MIN_SLICE = 16         # narrowest slice of hd a block owns (one mma row tile)
+MAX_SLICE_DS128 = 32   # widest slice whose tiles fit shared memory at ds 128
+# Blocks wanted per SM before hd is split further.  A block holds one SM
+# (8 warps, up to 220 KiB of shared memory) and walks its chunks in order;
+# each slice repeats the chunk's loads of B and C, the decay's scan and L,
+# so splitting past two waves costs more than it fills (on an H100 at
+# mamba2-130m's shape 768 blocks of P 16 run slower than 384 of P 32, at
+# zamba2-7b's 1,792 of P 32 slower than 896 of P 64; chip_smoke.py's SSD
+# rows time both).
+BLOCKS_PER_SM = 2
 
 launches = 0
+
+
+def slice_plan(B: int, nh: int, hd: int, ds: int, sm_count: int) -> int:
+    """The width P of the slice of hd each block owns: hd split into the
+    fewest slices (1, 2 or 4, each at least MIN_SLICE wide) that give
+    ``B * nh * slices >= BLOCKS_PER_SM * sm_count`` blocks, or the most
+    that hd allows; at ds 128 at most MAX_SLICE_DS128 wide (shared memory).
+    Every slice repeats the per-chunk work that does not depend on hd (the
+    loads of B and C, the decay, L), so more slices cost work; y and the
+    state's rows split exactly."""
+    if min(B, nh, hd, ds, sm_count) < 1:
+        raise ValueError(f"slice_plan: needs positive sizes, got B {B}, nh "
+                         f"{nh}, hd {hd}, ds {ds}, sm_count {sm_count}")
+    slices = 1
+    while (hd // (2 * slices) >= MIN_SLICE and hd % (2 * slices) == 0
+           and (B * nh * slices < BLOCKS_PER_SM * sm_count
+                or (ds >= 128 and hd // slices > MAX_SLICE_DS128))):
+        slices *= 2
+    return hd // slices
 
 
 def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
@@ -64,16 +95,21 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
             or not init_state.is_contiguous()):
         raise ValueError(f"ssd_scan: init_state must be a contiguous "
                          f"{(B, nh, hd, ds)}, got {tuple(init_state.shape)}")
+    P = slice_plan(B, nh, hd, ds, build.sm_count(x.device))
     lib = build.library("ssd_scan")
     y = torch.empty((B, S, nh, hd), dtype=torch.float32, device=x.device)
     final = torch.empty((B, nh, hd, ds), dtype=torch.float32, device=x.device)
+    # C B^T of each (batch, chunk), shared by every head and slice
+    cb = torch.empty((B, -(-S // CHUNK), CHUNK, CHUNK), dtype=torch.float32,
+                     device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         code = lib.ssd_scan_launch(
             x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
             Cm.data_ptr(),
             init_state.data_ptr() if init_state is not None else None,
-            y.data_ptr(), final.data_ptr(), B, S, nh, hd, ds,
+            y.data_ptr(), final.data_ptr(), cb.data_ptr(), B, S, nh, hd, ds,
+            P,
             x.stride(0), x.stride(1), x.stride(2), dt.stride(0), dt.stride(1),
             Bm.stride(0), Bm.stride(1), Cm.stride(0), Cm.stride(1),
             y.stride(0), y.stride(1), y.stride(2), stream)

@@ -3,7 +3,8 @@
 
 On the CPU: the plain versions that ``ops`` dispatches to for CPU tensors
 against the JAX package's oracles and its Pallas kernel in interpret mode,
-on inputs made with numpy.  The integer product is exact, so the matmul is
+on inputs made with numpy, with w_q row-major and K-major (the kernel's
+native layout), and the wrapper's choice of kernel body.  The integer product is exact, so the matmul is
 held at 1e-6 (``tests/test_kernels.py:103-113``) and the quantised values
 and scales must be equal.  On a card (``gpu`` marker): the CUDA kernel
 against its plain version, bit for bit.
@@ -125,6 +126,62 @@ def test_quant_matmul_ragged_matches_jax(jx, M, out_dtype):
                                np.asarray(want).astype(np.float32), **EXACT)
 
 
+def _k_major(w):
+    """The same [K,N] values with K stride 1 (the kernel's native layout)."""
+    return w.t().contiguous().t()
+
+
+@pytest.mark.parametrize("M,K,N", [(128, 256, 128), (64, 512, 192),
+                                   (256, 128, 64), (1, 200, 100),
+                                   (8, 200, 100), (17, 200, 100)])
+def test_quant_matmul_k_major_matches_row_major_and_pallas(jx, M, K, N):
+    """A K-major w_q is the same function of the same [K,N] tensor: the op
+    gives the row-major result and the Pallas kernel's (interpret mode),
+    bit for bit, at ``tests/test_kernels.py:103-105``'s shapes and ragged
+    ones."""
+    xq, wq, xs, ws = _quantized(11 + M, M, K, N)
+    wk = _k_major(wq)
+    assert wk.stride(0) == 1 and torch.equal(wk, wq)
+    got = ops.quant_matmul(xq, wk, xs, ws)
+    np.testing.assert_array_equal(got.numpy(),
+                                  ops.quant_matmul(xq, wq, xs, ws).numpy())
+    want = jx.pallas(*(jx.jnp.asarray(t.numpy()) for t in (xq, wq, xs, ws)),
+                     interpret=True, block_m=64, block_n=64, block_k=128)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("M,K,N,layout,want", [
+    (8, 3584, 18944, "k", "wgmma_small"),     # decode: the operands swap
+    (64, 256, 100, "k", "wgmma_small"),
+    (65, 256, 100, "k", "wgmma"),
+    (3792, 3584, 18944, "k", "wgmma"),        # prefill
+    (8, 3584, 18944, "row", "mma_sync"),      # row-major: transposed in smem
+    (3792, 3584, 256, "row", "mma_sync"),
+    (17, 200, 100, "k", "mma_sync"),          # rows of 200 B: no TMA
+])
+def test_quant_matmul_plan_follows_layout_and_alignment(M, K, N, layout,
+                                                        want):
+    """The body is picked from the layout and alignment of the operands
+    only: the TMA bodies need a K-major w_q and 16-byte rows."""
+    xq = torch.zeros(M, K, dtype=torch.int8)
+    wq = torch.zeros(K, N, dtype=torch.int8)
+    w = _k_major(wq) if layout == "k" else wq
+    assert qmod.w_layout(w) == (layout, w.stride(1 if layout == "k" else 0))
+    assert qmod.plan(xq, w) == want
+
+
+def test_quant_matmul_w_layout_refuses_other_strides():
+    """A w_q with neither its K nor its N stride 1 has no body; a single
+    column or row counts as row-major whatever its strides."""
+    w = torch.zeros(64, 64, dtype=torch.int8)[::2, ::2]
+    with pytest.raises(ValueError, match="stride"):
+        qmod.w_layout(w)
+    assert qmod.w_layout(torch.zeros(5, 1, dtype=torch.int8))[0] == "row"
+    assert qmod.w_layout(torch.zeros(1, 6, dtype=torch.int8))[0] == "row"
+    assert qmod.w_layout(_k_major(torch.zeros(7, 3, dtype=torch.int8))) \
+        == ("k", 7)
+
+
 def test_quant_matmul_integer_product_is_exact():
     """The float64 product is the exact integer product, at the largest
     magnitudes and a K where fp32 accumulation would round."""
@@ -243,6 +300,48 @@ def test_quant_matmul_kernel_matches_plain_on_gpu(out_dtype):
     got = qmod.quant_matmul(xv, wv, xs, ws[1:101].contiguous(), out_dtype=od)
     assert torch.equal(got, ref.quant_matmul_ref(xv, wv, xs,
                                                  ws[1:101].contiguous(), od))
+
+
+@pytest.mark.gpu
+def test_quant_matmul_both_layouts_ragged_sweep_on_gpu():
+    """Both layouts of w_q over M around the decode body's widths and the
+    prefill body's 128-row tiles, K past a 128-byte box and not a 16-byte
+    multiple, N past a 64-column tile: every body, bit for bit."""
+    dev = _cuda()
+    paths = set()
+    for M in (1, 8, 16, 17, 64, 65, 129):
+        for K, N in ((200, 100), (3600, 300), (1024, 18950)):
+            xq, wq, xs, ws = (t.to(dev) for t in _quantized(M * K % 97, M, K,
+                                                             N))
+            want = ref.quant_matmul_ref(xq, wq, xs, ws)
+            for w in (wq, _k_major(wq)):
+                paths.add(qmod.plan(xq, w))
+                got = qmod.quant_matmul(xq, w, xs, ws)
+                assert torch.equal(got, want), (M, K, N, w.stride())
+    assert paths == {"mma_sync", "wgmma_small", "wgmma"}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M", [1, 8, 33, 64])
+def test_quant_matmul_split_k_path_on_gpu(M):
+    """The decode body splits K across blocks and adds int32 partial sums
+    with atomics: exact whatever the order, also with every product at
+    +-127^2 over a K near K_MAX (the largest sums int32 holds here)."""
+    dev = _cuda()
+    K, N = 131056, 200
+    xq = torch.full((M, K), 127, dtype=torch.int8, device=dev)
+    wq = torch.full((K, N), 127, dtype=torch.int8, device=dev)
+    wq[:, 1::2] = -127
+    xs = torch.rand(M, device=dev) + 0.5
+    ws = torch.rand(N, device=dev) + 0.5
+    wk = _k_major(wq)
+    assert qmod.plan(xq, wk) == "wgmma_small"
+    for od in (torch.float32, torch.bfloat16):
+        got = qmod.quant_matmul(xq, wk, xs, ws, out_dtype=od)
+        assert torch.equal(got, ref.quant_matmul_ref(xq, wq, xs, ws, od))
+    xq, wq, xs, ws = (t.to(dev) for t in _quantized(M, M, 3584, 18944))
+    assert torch.equal(qmod.quant_matmul(xq, _k_major(wq), xs, ws),
+                       ref.quant_matmul_ref(xq, wq, xs, ws))
 
 
 @pytest.mark.gpu

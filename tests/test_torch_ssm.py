@@ -156,6 +156,121 @@ def test_ssd_dual_form_matches_float64_recurrence(chunk):
             assert err < 1e-6, err
 
 
+@pytest.mark.parametrize("with_init", [False, True])
+def test_ssd_hd_slices_concatenate_to_whole(with_init):
+    """y[..., p] and the state's row p depend on x[..., p] only (C B^T and
+    L are shared by every p): the plain dual form run on slices of hd, as
+    the kernel's blocks split it, and concatenated equals the whole run,
+    for y and the final state, with and without an initial state."""
+    B, S, nh, hd, ds = 2, 200, 3, 64, 32
+    x, dt, A, Bm, Cm = _t(*_ssd_inputs(12, B, S, nh, hd, ds))
+    s0 = (torch.from_numpy(np.random.default_rng(13).standard_normal(
+        (B, nh, hd, ds)).astype(np.float32)) if with_init else None)
+    want_y, want_s = ref.ssd_scan_ref(x, dt, A, Bm, Cm, chunk=64,
+                                      init_state=s0)
+    for P in (16, 32):
+        parts = [ref.ssd_scan_ref(
+            x[..., p:p + P].contiguous(), dt, A, Bm, Cm, chunk=64,
+            init_state=None if s0 is None else s0[:, :, p:p + P].contiguous())
+            for p in range(0, hd, P)]
+        assert torch.equal(torch.cat([y for y, _ in parts], -1), want_y)
+        assert torch.equal(torch.cat([st for _, st in parts], 2), want_s)
+
+
+def test_slice_plan():
+    """The wrapper's hd slices: at least 16 wide, dividing hd, split only
+    while the blocks are fewer than BLOCKS_PER_SM per SM."""
+    sms = 132
+    assert smod.slice_plan(8, 24, 64, 128, sms) == 32      # mamba2-130m: 384 blocks
+    assert smod.slice_plan(8, 112, 64, 64, sms) == 64     # zamba2-7b: 896 blocks
+    assert smod.slice_plan(1, 4, 64, 64, sms) == 16
+    assert smod.slice_plan(1, 4, 16, 128, sms) == 16
+    for B, nh, hd in ((1, 1, 32), (2, 3, 64), (8, 200, 16), (16, 8, 64)):
+        P = smod.slice_plan(B, nh, hd, 64, sms)
+        assert P >= smod.MIN_SLICE and hd % P == 0
+        if P < hd:
+            assert B * nh * (hd // P) // 2 < smod.BLOCKS_PER_SM * sms
+    # ds 128: at most 32 wide whatever the block count (shared memory)
+    assert smod.slice_plan(32, 24, 64, 128, sms) == smod.MAX_SLICE_DS128
+    assert smod.slice_plan(32, 24, 64, 64, sms) == 64
+    with pytest.raises(ValueError):
+        smod.slice_plan(0, 4, 64, 64, sms)
+
+
+SSD_F64_TOL = 2e-6     # chip_smoke.py: the SSD against float64, relative
+
+
+def _tf32(a: torch.Tensor) -> torch.Tensor:
+    """fp32 rounded to TF32 (10 mantissa bits), to nearest with ties away
+    from zero, as the kernel's cvt.rna.tf32.f32 rounds."""
+    bits = a.float().contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _mm_3xtf32(a, b):
+    """a @ b as the kernel forms it: hi.hi + (hi.lo + lo.hi), each operand
+    split into hi = tf32(v) and lo = tf32(v - hi); lo.lo is dropped."""
+    ah, bh = _tf32(a), _tf32(b)
+    al, bl = _tf32(a - ah), _tf32(b - bh)
+    return ah @ bh + (ah @ bl + al @ bh)
+
+
+def _mm_1xtf32(a, b):
+    return _tf32(a) @ _tf32(b)
+
+
+def _ssd_chunks(x, dt, A, Bm, Cm, mm, Q=64):
+    """The kernel's decomposition in plain fp32 with its four products
+    through ``mm``: 64-row chunks (the ragged last one shorter), cs summed
+    in float64, G = (C B^T) o L, y = G (x dt) + exp(cs) (C state^T), state =
+    exp(cs_last) state + (x dt w)^T B with w = exp(cs_last - cs)."""
+    B_, S, nh, hd = x.shape
+    ds = Bm.shape[-1]
+    state = torch.zeros(B_, nh, hd, ds)
+    ys = []
+    for c0 in range(0, S, Q):
+        r = min(Q, S - c0)
+        xc, dtc = x[:, c0:c0 + r], dt[:, c0:c0 + r]
+        Bc, Cc = Bm[:, c0:c0 + r], Cm[:, c0:c0 + r]
+        cs = torch.cumsum(dtc.double() * A.double(), 1).movedim(1, 2)
+        diff = cs[..., :, None] - cs[..., None, :]           # [B,nh,r,r]
+        L = torch.where(torch.ones(r, r, dtype=torch.bool).tril(),
+                        torch.exp(diff.float()), torch.zeros(()))
+        G = mm(Cc, Bc.transpose(1, 2))[:, None] * L
+        xdt = (xc * dtc[..., None]).movedim(1, 2)             # [B,nh,r,hd]
+        y = (mm(G, xdt) + torch.exp(cs.float())[..., None]
+             * mm(Cc[:, None], state.transpose(2, 3)))
+        ys.append(y.movedim(2, 1))
+        w = torch.exp((cs[..., -1:] - cs).float()) * dtc.movedim(1, 2)
+        state = (state * torch.exp(cs[..., -1].float())[..., None, None]
+                 + mm((xc.movedim(1, 2) * w[..., None]).transpose(2, 3),
+                      Bc[:, None]))
+    return torch.cat(ys, 1), state
+
+
+def test_ssd_3xtf32_meets_the_float64_limit_where_tf32_does_not():
+    """Why the kernel takes three TF32 passes a product: its decomposition
+    with 3xTF32 products stays within 2e-6 (relative to the largest value)
+    of the float64 recurrence, as with exact fp32 products; one TF32 pass
+    (10 mantissa bits, ~5e-4) reads far above that limit."""
+    args64 = _model_like_ssd(14, 1, 200, 4, 16, 32)
+    want = ref.ssd_ref(*args64)
+    args = [a.float() for a in args64]
+
+    def rel(got):
+        return max(float((g.double() - w).abs().max() / w.abs().max())
+                   for g, w in zip(got, want))
+
+    exact = rel(_ssd_chunks(*args, mm=torch.matmul))
+    three = rel(_ssd_chunks(*args, mm=_mm_3xtf32))
+    one = rel(_ssd_chunks(*args, mm=_mm_1xtf32))
+    assert exact < SSD_F64_TOL and three < SSD_F64_TOL, (exact, three)
+    assert one > 10 * SSD_F64_TOL, one
+    v = torch.tensor([1.0 + 2 ** -11, 1.0 + 3 * 2 ** -11, -(1.0 + 2 ** -11)])
+    assert _tf32(v).tolist() == [1.0 + 2 ** -10, 1.0 + 2 ** -9,
+                                 -(1.0 + 2 ** -10)]
+
+
 def test_ssd_wrapper_refuses_cpu_tensors():
     """The CUDA wrapper launches or raises; only ``ops`` picks the plain
     version, and only for a CPU tensor."""
@@ -437,6 +552,53 @@ def test_ssd_kernel_matches_float64_recurrence_on_gpu(S):
     for g, w in zip(got, want):
         err = float((g.cpu().double() - w).abs().max() / w.abs().max())
         assert err < 2e-6, err
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("nh,ds", [(24, 128), (112, 64)])
+def test_ssd_kernel_at_serving_head_counts_on_gpu(nh, ds):
+    """mamba2-130m's and zamba2-7b's head counts and state dims (at B 2
+    the wrapper's hd slices of 16 and 32), a ragged S and an initial state:
+    within 2e-3 of the plain dual form and the recurrence, and within 2e-6
+    (relative to the largest value) of the recurrence in float64."""
+    dev = _cuda()
+    B, S, hd = 2, 200, 64
+    args64 = _model_like_ssd(15, B, S, nh, hd, ds)
+    s0 = torch.from_numpy(np.random.default_rng(16).standard_normal(
+        (B, nh, hd, ds)) * 0.1)
+    got = smod.ssd_scan(*(a.float().to(dev) for a in args64),
+                        init_state=s0.float().to(dev))
+    args = [a.float() for a in args64]
+    for plain in (ref.ssd_scan_ref, ref.ssd_ref):
+        for g, w in zip(got, plain(*args, init_state=s0.float())):
+            np.testing.assert_allclose(g.cpu().numpy(), w.numpy(), **SSD_TOL)
+    for g, w in zip(got, ref.ssd_ref(*args64, init_state=s0)):
+        err = float((g.cpu().double() - w).abs().max() / w.abs().max())
+        assert err < SSD_F64_TOL, err
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("P,ds", [(16, 128), (32, 128), (16, 64), (32, 64),
+                                  (64, 64), (64, 16), (32, 32)])
+def test_ssd_kernel_every_slice_width_on_gpu(monkeypatch, P, ds):
+    """Each slice width of hd the kernel is built for, forced through the
+    wrapper (at P <= 32 its warpgroups split y's K and add the halves, at
+    P 64 they split y's columns), with a ragged S and an initial state:
+    within 2e-3 of the plain dual form and 2e-6 of float64."""
+    dev = _cuda()
+    monkeypatch.setattr(smod, "slice_plan", lambda *args: P)
+    B, S, nh, hd = 2, 200, 3, 64
+    args64 = _model_like_ssd(17, B, S, nh, hd, ds)
+    s0 = torch.from_numpy(np.random.default_rng(18).standard_normal(
+        (B, nh, hd, ds)) * 0.1)
+    got = smod.ssd_scan(*(a.float().to(dev) for a in args64),
+                        init_state=s0.float().to(dev))
+    args = [a.float() for a in args64]
+    for g, w in zip(got, ref.ssd_scan_ref(*args, init_state=s0.float())):
+        np.testing.assert_allclose(g.cpu().numpy(), w.numpy(), **SSD_TOL)
+    for g, w in zip(got, ref.ssd_ref(*args64, init_state=s0)):
+        err = float((g.cpu().double() - w).abs().max() / w.abs().max())
+        assert err < SSD_F64_TOL, err
 
 
 @pytest.mark.gpu
