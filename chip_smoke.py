@@ -47,13 +47,16 @@ Phases, each printing one JSON line; any failure exits non-zero:
 5. serve   -- the main path, once per model: 8 requests (prompt lengths
               256-512 drawn from --seed, 16 new tokens each) through
               Batcher -> Engine on full-width qwen2-7b, zamba2-7b and
-              mamba2-130m, with the kernels' launch counts set to 0 just
+              mamba2-130m (qwen2's decode steps replay as CUDA graphs
+              between its decode-attention calls, which stay eager and
+              counted), with the kernels' launch counts set to 0 just
               before each and checked just after: one flash launch per
               attention application per prefill, one decode launch per
               application per decode step, one SSD launch per Mamba2 layer
               per prefill (qwen2 28/420/0, zamba2 14/210/81, mamba2 0/0/24).
-6. profile -- for each served model, prefill and decode-step times at the
-              serve batch's padded shape on the host clock, then under
+6. profile -- for each served model, the engine's prefill and decode-step
+              times at the serve batch's padded shape on the host clock,
+              then under
               torch.profiler: device time by kernel and the device's idle
               share in each.
 7. int8    -- the int8 path on full-width qwen2-7b's layer 0: each of its
@@ -66,14 +69,28 @@ Phases, each printing one JSON line; any failure exits non-zero:
               within 10 % of the error uniform int8 rounding predicts, and
               (all but the MLP down-projection, whose SwiGLU input is
               heavy-tailed) within 0.02 of the dense fp32 product.
-8. compound -- the main path through the port's own ClusterRuntime: the
-              social_media app (ingest gemma-2b, classify granite-3-2b,
-              caption qwen2-7b, one instance each at batch 8, a hand-built
-              plan with measured service times) on EngineBackend at full
-              width in bf16, Poisson 4 rps for 10 s of scenario time from
-              --seed, deadlines at 4x the app SLO; every root arrival ends
-              completed or dropped, and each arch's flash and decode
-              launches are exact.
+8. plan     -- the planning chain on the card: the port's H100_SXM preset
+              against the card (132 SMs, the usable HBM, a pinned 1 GiB
+              host-to-device copy beside the preset's staging bandwidth);
+              full-batch prefills and decode steps of the compound engines
+              (gemma-2b, granite-3-2b, qwen2-7b; batch 8, prompt 256) fit
+              the preset's flops and HBM efficiencies (one-parameter least
+              squares of the profiler's own model at the served lengths),
+              printed beside the measured services before and after the
+              fit; the deadline scale is fixed from the measured services
+              (max(4, 3 x the longest path / SLO)); then the port's Planner
+              plans social_media at 4 rps on one MIG-carved H100
+              (h100_cluster(1)), and fails if there is no plan or its
+              MigSlicePacker does not pack it; the plan for four cards at
+              40 rps is printed beside it.
+9. compound -- the main path through the port's own ClusterRuntime: the
+              social_media app on the plan phase's plan, each instance
+              served on the whole card by EngineBackend at full width in
+              bf16 (planned int8 variants too), Poisson 4 rps for 10 s of
+              scenario time from --seed, deadlines at the plan phase's
+              scale; every root arrival ends completed or dropped, each
+              arch's flash and decode launches are exact, and each served
+              tuple's planned latency is printed beside its services.
 
 The second-to-last line is ``{"kernels": [...]}``, one row per kernel at
 its main serving shape (four for quant_matmul: prefill and decode, each
@@ -81,8 +98,8 @@ on both layouts of w_q; the
 attention kernels also at gemma-2b's and granite-3-2b's compound shapes),
 ``launches`` from the serve run of the model whose shape the row names
 (``launches_by_model`` gives all three), from the compound phase for
-gemma-2b and granite-3-2b, or for quant_matmul from the int8 phase at that
-shape; the last is
+gemma-2b and granite-3-2b (0 where the plan serves that arch no call), or
+for quant_matmul from the int8 phase at that shape; the last is
 ``{"ok": true, "device": {...}}``.  Exits 2 with no result when
 there is no CUDA device or no ``src/repro_torch`` beside this script.
 """
@@ -1070,7 +1087,8 @@ def phase_serve(torch, card, model, seed: int) -> dict:
 
 def phase_profile(torch, card, eng, S: int) -> None:
     """Where a serve batch's time goes, at the serve phase's padded shape:
-    the prefill and each decode step on the host clock (synchronised),
+    the engine's prefill and each decode step (graphed on a dense model)
+    on the host clock (synchronised),
     then the same prefill and steps again under torch.profiler, device
     time summed over kernels only (not over the ops that launch them)."""
     import numpy as np
@@ -1083,11 +1101,11 @@ def phase_profile(torch, card, eng, S: int) -> None:
     tokens = torch.as_tensor(prompts, device=model.device)
 
     def prefill():
-        logits, cache = model.prefill(tokens, max_seq=SERVE_MAX_SEQ)
+        logits, cache = eng.prefill(tokens)
         return logits[:, -1].argmax(-1, keepdim=True), cache
 
     def decode(tok, cache, i):
-        logits, cache = model.decode_step(cache, S + i, tok)
+        logits, cache = eng.decode_step(cache, S + i, tok)
         return logits[:, -1].argmax(-1, keepdim=True)
 
     torch.cuda.synchronize()
@@ -1293,7 +1311,7 @@ class _Ledger:
         self.outcomes[root_id] = self.outcomes.get(root_id, 0) + 1
 
     def on_dispatch(self, server, batch, now, service_s, queue_len):
-        self.dispatches.append((server.tup.task, len(batch), service_s))
+        self.dispatches.append((server.tup.key, len(batch), service_s))
 
 
 class _PerArch:
@@ -1325,92 +1343,385 @@ class _PerArch:
 
 
 COMPOUND_APP = "social_media"
-COMPOUND_PLAN = {"ingest": "gemma-2b", "classify": "granite-3-2b",
-                 "caption": "qwen2-7b"}
 COMPOUND_BATCH, COMPOUND_RPS, COMPOUND_S = 8, 4.0, 10.0
-# Deadlines at 4x the app's 700 ms at least: one eager full-width hop of
-# 16 new tokens takes about half a second on the card, so at 1x the
-# early-drop rule drops every request at ingest and no leaf is served.
-# An eager service is bound by the host, whose speed varies from machine
-# to machine by 2x and more (granite-3-2b's batch took 0.64-1.30 s), so
-# the deadline also leaves COMPOUND_PATH_SLACK times the longest path's
-# service measured just before the run; with less than about 2x every
-# root may be dropped at ingest.  Attainment within the app's own SLO is
-# reported beside it.
+COMPOUND_PROMPT, COMPOUND_MAX_SEQ = 256, 512
+# Deadlines at 4x the app's 700 ms at least: a full-width hop of 16 new
+# tokens took 0.3-1.1 s on the card with eager decode steps (0.12-0.25 s
+# graphed), and at 1x the early-drop rule dropped every request at
+# ingest.  Whatever of a service is bound by the host varies from machine
+# to machine by 2x and more, so the deadline also leaves
+# COMPOUND_PATH_SLACK times the longest path's service measured before
+# planning; with less than about 2x every root may be dropped at ingest.  The scale is fixed once, from measured
+# services only, before the plan is made.  Attainment within the app's
+# own SLO is reported beside it.
 COMPOUND_SLO_SCALE = 4.0
 COMPOUND_PATH_SLACK = 3.0
+# The plan phase: the batches the profiler may plan (capped at the
+# engine's max batch, so no planned batch is served in two launches), and
+# the planner's budgets: a node budget that binds and a wall-clock one the
+# plans never reach.
+PLAN_BATCHES = (1, 2, 4, 8)
+PLAN_KW = dict(max_tuples_per_task=32, bb_nodes=8, bb_time_s=120.0)
+PLAN_REPS = 3                 # timed prefills / decode runs / services
+PLAN_WIDE_CARDS, PLAN_WIDE_RPS = 4, 40.0   # printed, not served
+H2D_BYTES = 1 << 30
+H100_SMS = 132
 
 
-def phase_compound(torch, card, seed: int) -> dict:
+def _served_terms(arch, batch: int, prompt: int, new: int) -> dict:
+    """The profiler's own prefill and decode-step terms (``request_flops``,
+    ``request_bytes``) at the lengths the engine serves: ``batch`` prompts
+    of ``prompt`` tokens and ``new`` generated tokens, weights and the KV
+    cache read once a pass, bf16 (the engine ignores ``Variant.quant``)."""
+    from repro_torch.core.profiler import request_bytes, request_flops
+    fl_p, fl_d = request_flops(arch, "bf16", batch, prompt, new)
+    wb, kv, _ = request_bytes(arch, "bf16", batch, prompt + new)
+    return {"prefill_flop": fl_p, "step_flop": fl_d, "bytes": wb + kv}
+
+
+def _fit_device(dev, terms: dict, measured: dict):
+    """``dev`` with its efficiencies fitted to the measured walls: one-
+    parameter least squares of the profiler's model over the archs,
+    ``hbm_efficiency`` from the mean decode steps through the byte term
+    (t_dec = bytes / (hbm_bw * e)) and ``flops_efficiency`` from the
+    prefills through the operation term (t_pre = flop / (peak * e)), the
+    terms that bind at the served batch.  Minimising sum (a_i x - t_i)^2
+    over x = 1/e gives x = sum a_i t_i / sum a_i^2."""
+    import dataclasses
+
+    def fit(a, t):
+        return sum(x * x for x in a) / sum(x * y for x, y in zip(a, t))
+
+    archs = sorted(terms)
+    mem = [terms[a]["bytes"] / dev.hbm_bw for a in archs]
+    ops = [terms[a]["prefill_flop"] / dev.peak("bf16") for a in archs]
+    return dataclasses.replace(
+        dev, hbm_efficiency=fit(mem, [measured[a]["step_s"] for a in archs]),
+        flops_efficiency=fit(ops, [measured[a]["prefill_s"]
+                                   for a in archs]))
+
+
+def _profiled_vs_measured(graph, dev, measured: dict) -> dict:
+    """Per arch, the profiler's own service (``Profiler.profile_one``, P95
+    factor divided out) of the arch's first variant at the served lengths
+    (prompt 256, 16 new tokens), batch 8, on one whole H100 of spec
+    ``dev``, beside the measured service."""
+    import dataclasses
+    from repro_torch.core.profiler import P95_FACTOR, Profiler
+    from repro_torch.hwspec import ClusterSpec, h100_cluster
+
+    (pool,) = h100_cluster(1).pools
+    pool = dataclasses.replace(pool, device=dev)
+    whole = next(sl for sl in pool.scheme.slices() if sl.name == "7g.80gb.s1")
+    prof = Profiler(graph, cluster=ClusterSpec(pools=(pool,)), batches=())
+    out = {}
+    for a in sorted(measured):
+        v = next(v for t in graph.tasks.values() for v in t.variants
+                 if v.arch == a)
+        v = dataclasses.replace(v, seq_len=COMPOUND_PROMPT,
+                                gen_len=SERVE_NEW)
+        e = prof.profile_one(v, whole, COMPOUND_BATCH, pool=pool)
+        service = e.latency_ms / 1e3 / P95_FACTOR
+        out[a] = {"service_s": service,
+                  "measured_service_s": measured[a]["service_s"],
+                  "service_profiled_over_measured":
+                      service / measured[a]["service_s"]}
+    return out
+
+
+def _slo_scale(graph, services: dict) -> tuple:
+    """The deadline scale, from measured services only: each task on a
+    path takes its slowest arch's measured full-batch service, and the
+    deadline is max(COMPOUND_SLO_SCALE x SLO, COMPOUND_PATH_SLACK x the
+    longest such path)."""
+    slowest = {t: max(services[v.arch] for v in task.variants)
+               for t, task in graph.tasks.items()}
+    longest = max(sum(slowest[t] for t in path) for path in graph.paths)
+    return max(COMPOUND_SLO_SCALE, COMPOUND_PATH_SLACK * longest
+               / (graph.slo_latency_ms / 1e3)), longest
+
+
+def _plan_on(graph, dev, devices: int, rps: float, slo_scale: float):
+    """The port's planner on ``devices`` H100s of device spec ``dev``
+    (``h100_cluster``), the app's latency SLO scaled by ``slo_scale``, and
+    the plan packed by the pool's MIG packer.  Returns the planner, the
+    plan (None if there is none), the placements (None if the plan does
+    not pack), the packer and the planner's host seconds."""
+    import dataclasses
+    from repro_torch.core.milp import Planner
+    from repro_torch.core.placement import make_placer
+    from repro_torch.core.profiler import Profiler
+    from repro_torch.hwspec import ClusterSpec, h100_cluster
+
+    (pool,) = h100_cluster(devices).pools
+    pool = dataclasses.replace(pool, device=dev)
+    cluster = ClusterSpec(pools=(pool,))
+    g = dataclasses.replace(graph,
+                            slo_latency_ms=graph.slo_latency_ms * slo_scale)
+    prof = Profiler(g, cluster=cluster, batches=PLAN_BATCHES)
+    planner = Planner(g, prof, s_avail=cluster.total_units, **PLAN_KW)
+    t0 = time.monotonic()
+    cfg = planner.plan(rps)
+    plan_s = time.monotonic() - t0
+    packer = make_placer(pool)
+    placed = None
+    if cfg is not None:
+        placed = packer.pack([t.segment for t, m in cfg.instances()
+                              for _ in range(m)])
+    return planner, cfg, placed, packer, plan_s
+
+
+def _plan_summary(graph, planner, cfg, placed, packer, plan_s) -> dict:
+    """What a plan says: its instances, slices, g-units packed, objective
+    (paper Eq. 14 as the planner prices it: beta x sum price x cost x m -
+    alpha x A_obj) and the planner's counters."""
+    import dataclasses
+    out = {"planner_host_s": plan_s,
+           "stats": dataclasses.asdict(planner.stats)}
+    if cfg is None:
+        return {**out, "plan": None}
+    prices = planner.cluster.prices()
+    price = sum(prices[t.pool] * t.cost * m for t, m in cfg.instances())
+    return {**out, "plan": [
+        {"task": t.task, "variant": t.variant,
+         "arch": graph.tasks[t.task].variant(t.variant).arch,
+         "quant": graph.tasks[t.task].variant(t.variant).quant,
+         "slice": t.segment, "batch": t.batch, "count": m,
+         "streams": t.streams, "latency_ms": t.latency_ms,
+         "throughput_rps": t.throughput} for t, m in cfg.instances()],
+        "slices": cfg.slices, "pool_slices": cfg.pool_slices(),
+        "a_obj": cfg.exact_a_obj(),
+        "objective": planner.beta * price - planner.alpha * cfg.exact_a_obj(),
+        "worst_path_ms": cfg.worst_path_latency(),
+        "packed": placed is not None,
+        "g_used": packer.g_total_used if placed is not None else None,
+        "cards_used": (len({p.pod for p in placed}) if placed is not None
+                       else None),
+        "placements": ([[p.segment, p.pod, p.row] for p in placed]
+                       if placed is not None else None)}
+
+
+def _archs(graph) -> list:
+    """The archs the app's variants run (gemma-2b, granite-3-2b and
+    qwen2-7b for social_media)."""
+    return sorted({v.arch for t in graph.tasks.values() for v in t.variants})
+
+
+def _probe(graph, arch_name: str):
+    """A server for ``EngineBackend.service_s`` outside the runtime: the
+    first variant of the app that runs ``arch_name``, on the whole card."""
+    from types import SimpleNamespace
+    from repro_torch.core.milp import TupleVar
+    task, var = next((t, v) for t, task in graph.tasks.items()
+                     for v in task.variants if v.arch == arch_name)
+    return SimpleNamespace(app="", tup=TupleVar(
+        task, var.name, "7g.80gb.s1", COMPOUND_BATCH, latency_ms=0.0,
+        throughput=0.0, cost=7, accuracy=var.accuracy))
+
+
+def _measure_arch(torch, eng, rng, reps: int) -> dict:
+    """A full batch's prefill and decode steps through the engine (its
+    graphed steps on the card), on the host clock (synchronised), ``reps``
+    times, at the compound phase's shapes."""
+    model = eng.model
+    steps, prefills = [], []
+    for _ in range(reps):
+        prompts = rng.integers(0, model.arch.vocab_size,
+                               size=(COMPOUND_BATCH, COMPOUND_PROMPT))
+        tokens = torch.as_tensor(prompts, device=model.device)
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        logits, cache = eng.prefill(tokens)
+        tok = logits[:, -1].argmax(-1, keepdim=True)
+        torch.cuda.synchronize()
+        prefills.append(time.monotonic() - t0)
+        for i in range(SERVE_NEW - 1):
+            t0 = time.monotonic()
+            logits, cache = eng.decode_step(cache, COMPOUND_PROMPT + i, tok)
+            tok = logits[:, -1].argmax(-1, keepdim=True)
+            torch.cuda.synchronize()
+            steps.append(time.monotonic() - t0)
+        del cache, logits
+    return {"prefill_s": sorted(prefills)[len(prefills) // 2],
+            "step_s": sum(steps) / len(steps),
+            "prefill_walls_s": prefills}
+
+
+def _phase_spec(torch, card, dev) -> dict:
+    """The H100_SXM preset against the card: SM count and memory (fails
+    below 132 SMs or below the preset's usable HBM), and a pinned
+    host-to-device copy of 1 GiB beside the preset's staging bandwidth."""
+    props = torch.cuda.get_device_properties(0)
+    host = torch.empty(H2D_BYTES, dtype=torch.uint8, pin_memory=True)
+    dst = torch.empty(H2D_BYTES, dtype=torch.uint8, device="cuda")
+    dst.copy_(host, non_blocking=True)
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(3):
+        start, stop = (torch.cuda.Event(enable_timing=True),
+                       torch.cuda.Event(enable_timing=True))
+        start.record()
+        dst.copy_(host, non_blocking=True)
+        stop.record()
+        stop.synchronize()
+        times.append(start.elapsed_time(stop) / 1e3)
+    del host, dst
+    h2d = H2D_BYTES / min(times)
+    spec = {"sm_count": props.multi_processor_count,
+            "sm_count_expected": H100_SMS,
+            "total_memory_bytes": props.total_memory,
+            "preset_hbm_bytes": dev.hbm_bytes,
+            "preset_usable_hbm_bytes": dev.usable_hbm_bytes,
+            "preset_hbm_bw": dev.hbm_bw,
+            "preset_peak_flops": dict(dev.peak_flops),
+            "pinned_h2d_bytes": H2D_BYTES, "pinned_h2d_s": times,
+            "pinned_h2d_bytes_per_s": h2d,
+            "preset_staging_bw": dev.staging_bw,
+            "h2d_over_preset_staging": h2d / dev.staging_bw}
+    if props.multi_processor_count != H100_SMS:
+        raise AssertionError(f"plan: {props.multi_processor_count} SMs, "
+                             f"the H100_SXM preset has {H100_SMS}")
+    if props.total_memory < dev.usable_hbm_bytes:
+        raise AssertionError(f"plan: {props.total_memory} B on the card < "
+                             f"the preset's usable {dev.usable_hbm_bytes}")
+    return spec
+
+
+def phase_plan(torch, card, seed: int) -> dict:
+    """The planning chain on the card: the H100_SXM preset checked against
+    it; its flops and HBM efficiencies fitted to full-batch prefills and
+    decode steps of the compound engines (EngineBackend at full width in
+    bf16, batch 8, prompt 256) of gemma-2b, granite-3-2b and qwen2-7b,
+    with the profiler's services before and after the fit beside the
+    measured ones; the deadline scale fixed from the measured services;
+    then the port's Planner on one MIG-carved H100 (h100_cluster with the
+    fitted spec) at the compound rate, which must give a plan that its
+    MigSlicePacker packs, and the plan for four cards at ten times the
+    rate, printed only.  The timed runs are this phase's path: the
+    kernels' counts are set to 0 before them and checked after.  Returns
+    what the compound phase serves: the backend with its engines, the
+    plan, the scale and the measured services."""
+    import numpy as np
+    from repro_torch.core.apps import get_app
+    from repro_torch.hwspec import H100_SXM
+    from repro_torch.kernels import decode_attention as dmod
+    from repro_torch.kernels import flash_attention as fmod
+    from repro_torch.runtime import EngineBackend
+
+    t_phase = time.monotonic()
+    spec = _phase_spec(torch, card, H100_SXM)
+    graph = get_app(COMPOUND_APP)
+    archs = _archs(graph)
+    backend = EngineBackend(reduced=False, max_batch=COMPOUND_BATCH,
+                            max_seq=COMPOUND_MAX_SEQ,
+                            prompt_len=COMPOUND_PROMPT, max_new=SERVE_NEW)
+    backend.bind(graph, None)
+    rng = np.random.default_rng(seed)
+    measured, terms, launches, expect = {}, {}, {}, {}
+    for arch_name in archs:
+        eng = backend._engine_for(arch_name)           # builds and warms
+        probe = _probe(graph, arch_name)
+        full = [None] * COMPOUND_BATCH
+        backend.service_s(probe, full, 0.0, rng)       # first full batch
+        fmod.launches = dmod.launches = 0
+        measured[arch_name] = _measure_arch(torch, eng, rng, PLAN_REPS)
+        services = [backend.service_s(probe, full, 0.0, rng)
+                    for _ in range(PLAN_REPS)]
+        launches[arch_name] = {"flash_attention": fmod.launches,
+                               "decode_attention": dmod.launches}
+        layers = eng.model.arch.num_layers
+        expect[arch_name] = {
+            "flash_attention": layers * 2 * PLAN_REPS,
+            "decode_attention": layers * 2 * PLAN_REPS * (SERVE_NEW - 1)}
+        measured[arch_name]["service_s"] = sorted(services)[PLAN_REPS // 2]
+        measured[arch_name]["service_walls_s"] = services
+        terms[arch_name] = _served_terms(eng.model.arch, COMPOUND_BATCH,
+                                         COMPOUND_PROMPT, SERVE_NEW)
+    fitted = _fit_device(H100_SXM, terms, measured)
+    service = {a: m["service_s"] for a, m in measured.items()}
+    slo_scale, longest = _slo_scale(graph, service)
+    print(f"plan: deadline scale {slo_scale:.4f} (longest path "
+          f"{longest:.4f} s of measured services)", flush=True)
+    planner, cfg, placed, packer, plan_s = _plan_on(
+        graph, fitted, 1, COMPOUND_RPS, slo_scale)
+    wide = _plan_on(graph, fitted, PLAN_WIDE_CARDS, PLAN_WIDE_RPS, slo_scale)
+    emit("plan", card=card["nvidia_smi"], spec=spec, app=COMPOUND_APP,
+         batch=COMPOUND_BATCH, prompt_len=COMPOUND_PROMPT,
+         new_tokens=SERVE_NEW, terms=terms, measured=measured,
+         fitted={"flops_efficiency": fitted.flops_efficiency,
+                 "hbm_efficiency": fitted.hbm_efficiency},
+         preset={"flops_efficiency": H100_SXM.flops_efficiency,
+                 "hbm_efficiency": H100_SXM.hbm_efficiency},
+         profiled_before_fit=_profiled_vs_measured(graph, H100_SXM, measured),
+         profiled_after_fit=_profiled_vs_measured(graph, fitted, measured),
+         longest_path_service_s=longest, slo_scale=slo_scale,
+         rate_rps=COMPOUND_RPS, batches=PLAN_BATCHES, planner_kw=PLAN_KW,
+         served={"cards": 1, "rate_rps": COMPOUND_RPS,
+                 **_plan_summary(graph, planner, cfg, placed, packer,
+                                 plan_s)},
+         wide={"cards": PLAN_WIDE_CARDS, "rate_rps": PLAN_WIDE_RPS,
+               **_plan_summary(graph, *wide)},
+         launches=launches, expected_launches=expect,
+         phase_host_wall_s=time.monotonic() - t_phase)
+    if launches != expect:
+        raise AssertionError(f"plan: launches {launches} != {expect}")
+    if cfg is None:
+        raise AssertionError(f"plan: no plan for {COMPOUND_APP} at "
+                             f"{COMPOUND_RPS} rps on one H100")
+    if placed is None:
+        raise AssertionError("plan: the plan does not pack on one H100")
+    return {"backend": backend, "graph": graph, "cfg": cfg,
+            "slo_scale": slo_scale, "longest_path_s": longest,
+            "services": service}
+
+
+def phase_compound(torch, card, seed: int, planned: dict) -> dict:
     """The main path through the port's own control plane: the
     social_media app served by ``repro_torch.runtime.ClusterRuntime`` on
-    ``EngineBackend(reduced=False)``, full-width gemma-2b, granite-3-2b and
-    qwen2-7b in bf16, one instance each at batch 8, under Poisson traffic
-    with deadlines at COMPOUND_SLO_SCALE times the app's SLO, or at
-    COMPOUND_PATH_SLACK times the longest path's measured service where
-    that is longer.
-    The plan is built by hand; each tuple's latency is one measured
-    service of a full batch (after the engine's warm-up), so the
-    runtime's early drop works from what the card does.  Before that, one
-    full-batch service per arch runs with every kernel call held against
-    its plain version on the same inputs (``_each_call_checked``), at the
+    ``EngineBackend(reduced=False)`` (full-width gemma-2b, granite-3-2b
+    and qwen2-7b in bf16) on the plan the plan phase made, under Poisson
+    traffic with deadlines at the scale that phase fixed.  Every planned
+    instance is served on the whole card (MIG is not reconfigured) and
+    a planned int8 variant runs in bf16 (the engine ignores
+    ``Variant.quant``, as the reference's does).  Before the run, one
+    full-batch service per arch has every kernel call held against its
+    plain version on the same inputs (``_each_call_checked``), at the
     shapes this path gives the kernels.  Every root arrival must end as
     completed or dropped at each of its leaves, the queues must drain,
     and each arch's launches must be one flash launch per layer per
-    service call and one decode launch per layer per decode step.  Returns
-    the launches per arch and kernel."""
+    service call and one decode launch per layer per decode step.  Prints
+    each served tuple's planned latency beside its measured services.
+    Returns the launches per arch and kernel."""
+    import dataclasses
     import numpy as np
-    from types import SimpleNamespace
-    from repro_torch.core.apps import get_app
-    from repro_torch.core.milp import PlanConfig, TupleVar
     from repro_torch.kernels import decode_attention as dmod
     from repro_torch.kernels import flash_attention as fmod
     from repro_torch.kernels import quant_matmul as qmod
     from repro_torch.kernels import ssd_scan as smod
-    from repro_torch.runtime import ClusterRuntime, EngineBackend, Scenario
+    from repro_torch.runtime import ClusterRuntime, Scenario
 
     t_phase = time.monotonic()
-    graph = get_app(COMPOUND_APP)
+    backend, graph = planned["backend"], planned["graph"]
+    cfg = dataclasses.replace(planned["cfg"], graph=graph)
+    slo_scale = planned["slo_scale"]
     leaves = len(graph.paths)
     if any(f != 1.0 for f in graph.mult.values()):
         raise AssertionError("the per-root accounting assumes fan-out 1")
-    backend = EngineBackend(reduced=False, max_batch=COMPOUND_BATCH,
-                            max_seq=512, prompt_len=256, max_new=SERVE_NEW)
-    backend.bind(graph, None)
     torch.cuda.reset_peak_memory_stats()
     rng = np.random.default_rng(seed)
-    counts, tuples, profiled, archs, checked, bad = {}, {}, {}, {}, {}, {}
-    for task, variant in COMPOUND_PLAN.items():
-        v = graph.tasks[task].variant(variant)
-        probe = SimpleNamespace(app="", tup=TupleVar(
-            task, variant, "h100", COMPOUND_BATCH, latency_ms=0.0,
-            throughput=0.0, cost=1, accuracy=v.accuracy))
-        full = [None] * COMPOUND_BATCH
-        backend.service_s(probe, full, 0.0, rng)      # builds and warms
-        archs[v.arch] = backend._engines[v.arch].model.arch
+    checked, bad = {}, {}
+    for arch_name in _archs(graph):
         found = {}
         with _each_call_checked(torch, found):
-            backend.service_s(probe, full, 0.0, rng)
-        checked[v.arch] = {k: {"calls": n, "max_abs_err": worst,
-                               "out_of_tol": out}
-                           for k, (n, worst, out) in found.items()}
-        wrong = _calls_in_tolerance(archs[v.arch], found, 1, SERVE_NEW - 1)
+            backend.service_s(_probe(graph, arch_name),
+                              [None] * COMPOUND_BATCH, 0.0, rng)
+        checked[arch_name] = {k: {"calls": n, "max_abs_err": worst,
+                                  "out_of_tol": out}
+                              for k, (n, worst, out) in found.items()}
+        wrong = _calls_in_tolerance(backend._engines[arch_name].model.arch,
+                                    found, 1, SERVE_NEW - 1)
         if wrong:
-            bad[v.arch] = wrong
-        service = backend.service_s(probe, full, 0.0, rng)
-        profiled[variant] = service
-        key = (task, variant, "h100", COMPOUND_BATCH)
-        tuples[key] = TupleVar(task, variant, "h100", COMPOUND_BATCH,
-                               latency_ms=service * 1e3,
-                               throughput=COMPOUND_BATCH / service, cost=1,
-                               accuracy=v.accuracy)
-        counts[key] = 1
-    cfg = PlanConfig(graph=graph, counts=counts, tuples=tuples,
-                     demand={t: COMPOUND_RPS for t in graph.tasks})
-    longest_path_s = max(sum(profiled[COMPOUND_PLAN[t]] for t in path)
-                         for path in graph.paths)
-    slo_scale = max(COMPOUND_SLO_SCALE, COMPOUND_PATH_SLACK * longest_path_s
-                    / (graph.slo_latency_ms / 1e3))
+            bad[arch_name] = wrong
     mods = {"flash_attention": fmod, "decode_attention": dmod,
             "ssd_scan": smod, "quant_matmul": qmod}
     counted = _PerArch(backend, mods)
@@ -1425,7 +1736,7 @@ def phase_compound(torch, card, seed: int) -> dict:
     totals = {k: mod.launches for k, mod in mods.items()}
     expect = {}
     for arch_name, calls in counted.calls.items():
-        layers = archs[arch_name].num_layers
+        layers = backend._engines[arch_name].model.arch.num_layers
         expect[arch_name] = {"flash_attention": layers * calls,
                              "decode_attention":
                                  layers * calls * (SERVE_NEW - 1),
@@ -1440,19 +1751,36 @@ def phase_compound(torch, card, seed: int) -> dict:
     sums_ok = all(totals[k] == sum(c[k] for c in counted.launches.values())
                   for k in mods)
     lat = np.asarray(m.latencies_ms) if m.latencies_ms else np.zeros(1)
-    batches = {}
-    for task, n, _ in ledger.dispatches:
-        batches.setdefault(task, []).append(n)
+    batches, served = {}, []
+    for key, n, _ in ledger.dispatches:
+        batches.setdefault(key[0], []).append(n)
+    for tup, count in cfg.instances():
+        walls = [s for key, _, s in ledger.dispatches if key == tup.key]
+        v = graph.tasks[tup.task].variant(tup.variant)
+        served.append({
+            "task": tup.task, "variant": tup.variant, "quant": v.quant,
+            "served_as": "bf16", "slice": tup.segment,
+            "served_on": "whole card", "batch": tup.batch, "count": count,
+            "planned_latency_ms": tup.latency_ms,
+            "measured_service_ms": [s * 1e3 for s in walls],
+            "planned_over_mean_measured": (
+                tup.latency_ms / (1e3 * sum(walls) / len(walls))
+                if walls else None)})
     emit("compound", card=card["nvidia_smi"], app=COMPOUND_APP,
-         plan={t: v for t, v in COMPOUND_PLAN.items()},
+         plan_from="plan phase (repro_torch Planner, h100_cluster(1))",
+         served=served,
+         note="every planned instance is served on the whole card (no MIG "
+              "reconfiguration); int8 variants run in bf16 (EngineBackend "
+              "ignores Variant.quant, as the reference's does)",
          batch=COMPOUND_BATCH, rate_rps=COMPOUND_RPS,
          scenario_s=COMPOUND_S, seed=seed,
-         profiled_service_s_batch8=profiled,
+         measured_service_s_batch8=planned["services"],
          checked_vs_plain=checked, checked_out_of_tol=bad,
          root_arrivals=ledger.arrivals, leaves_per_root=leaves,
          completions=m.completions, missed=m.missed, dropped=m.dropped,
          drops=ledger.drops, queued_at_end=left, accounted=accounted,
-         longest_path_service_s=longest_path_s, slo_scale=slo_scale,
+         longest_path_service_s=planned["longest_path_s"],
+         slo_scale=slo_scale,
          slo_attainment=1.0 - m.violation_rate,
          within_app_slo=sum(x <= graph.slo_latency_ms
                             for x in m.latencies_ms)
@@ -1510,14 +1838,15 @@ def main(argv=None) -> int:
             int8_launches = phase_int8(torch, card, model, args.seed)
         del model, eng
         torch.cuda.empty_cache()
-    compound_launches = phase_compound(torch, card, args.seed)
+    planned = phase_plan(torch, card, args.seed)
+    compound_launches = phase_compound(torch, card, args.seed, planned)
     for row in rows:
         if row["name"] == "quant_matmul":   # no serve run calls it
             row["launches"] = int8_launches[row["model"]][row["layout"]]
             row["launches_from"] = "int8 phase"
             continue
         if row["model"] in (GEMMA, GRANITE):  # served in the compound phase
-            # an arch whose every request was dropped served no call
+            # 0 where the plan serves that arch no call
             row["launches"] = compound_launches.get(row["model"], {}).get(
                 row["name"], 0)
             row["launches_from"] = "compound phase"

@@ -78,7 +78,32 @@ def attention_full(h: torch.Tensor, p: DenseBlock, arch: ArchConfig,
     attend = ops.flash_attention if impl == "kernel" else \
         ref.flash_attention_ref
     out = attend(q, k, v, causal=True)
-    return out.flatten(2) @ p.wo.flatten(0, 1), (k, v)
+    return attention_out(out, p), (k, v)
+
+
+def decode_qkv(h: torch.Tensor, p: DenseBlock, arch: ArchConfig,
+               k_cache: torch.Tensor, v_cache: torch.Tensor,
+               pos: torch.Tensor, index) -> torch.Tensor:
+    """The new token's rotated query [B,1,H,hd]; its K/V are written into
+    the caches IN PLACE at ``index``: a host int, or a one-element int64
+    tensor on the caches' device (which a captured CUDA graph reads when
+    it is replayed).  ``pos``: [B, 1] int32 positions."""
+    hn = layers.rms_norm(h, p.attn_norm, arch.norm_eps)
+    q, k, v = _project_qkv(hn, p, arch)
+    q = layers.apply_rope(q, pos, arch.rope_theta)
+    k = layers.apply_rope(k, pos, arch.rope_theta)
+    if isinstance(index, torch.Tensor):
+        k_cache.index_copy_(1, index, k)
+        v_cache.index_copy_(1, index, v)
+    else:
+        k_cache[:, index] = k[:, 0]
+        v_cache[:, index] = v[:, 0]
+    return q
+
+
+def attention_out(o: torch.Tensor, p: DenseBlock) -> torch.Tensor:
+    """The output projection of attention [B,S,H,hd] -> [B,S,d]."""
+    return o.flatten(2) @ p.wo.flatten(0, 1)
 
 
 def attention_decode(h: torch.Tensor, p: DenseBlock, arch: ArchConfig,
@@ -92,18 +117,12 @@ def attention_decode(h: torch.Tensor, p: DenseBlock, arch: ArchConfig,
     (``where(iota == cache_len, new, cache)``), which keeps a
     sequence-sharded cache free of collectives; one device needs no such
     trick, and the in-place write moves one row instead of the cache."""
-    B = h.shape[0]
-    hn = layers.rms_norm(h, p.attn_norm, arch.norm_eps)
-    pos = torch.full((B, 1), cache_len, dtype=torch.int32, device=h.device)
-    q, k, v = _project_qkv(hn, p, arch)
-    q = layers.apply_rope(q, pos, arch.rope_theta)
-    k = layers.apply_rope(k, pos, arch.rope_theta)
-    k_cache[:, cache_len] = k[:, 0]
-    v_cache[:, cache_len] = v[:, 0]
+    pos = torch.full((h.shape[0], 1), cache_len, dtype=torch.int32,
+                     device=h.device)
+    q = decode_qkv(h, p, arch, k_cache, v_cache, pos, cache_len)
     attend = ops.decode_attention if impl == "kernel" else \
         ref.decode_attention_ref
-    out = attend(q, k_cache, v_cache, cache_len + 1)
-    return out.flatten(2) @ p.wo.flatten(0, 1)
+    return attention_out(attend(q, k_cache, v_cache, cache_len + 1), p)
 
 
 def mlp(h: torch.Tensor, p: DenseBlock, arch: ArchConfig) -> torch.Tensor:

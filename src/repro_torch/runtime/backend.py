@@ -18,8 +18,8 @@ from __future__ import annotations
 import time
 import zlib
 from dataclasses import dataclass, field
-from typing import (TYPE_CHECKING, Any, Dict, List, Protocol, Sequence,
-                    runtime_checkable)
+from typing import (TYPE_CHECKING, Any, Dict, List, Mapping, Optional,
+                    Protocol, Sequence, runtime_checkable)
 
 import numpy as np
 import torch
@@ -87,11 +87,19 @@ class EngineBackend:
     ``reduced`` (the default, as the reference always does) serves the
     archs' reduced variants in fp32; ``reduced=False`` serves the full
     widths in bf16, which needs the card.  Weights are random, seeded per
-    arch from its name."""
+    arch from its name.
+
+    The measured wall is scaled by ``time_scale`` (sim-seconds per
+    wall-second).  ``pool_time_scale`` maps a ClusterSpec pool name to ITS
+    scale, so a plan over several pools reflects their relative device
+    speeds: a server's pool picks its own scale, pools absent from the map
+    fall back to ``time_scale``."""
     max_batch: int = 4
     max_seq: int = 64
     prompt_len: int = 8
     max_new: int = 4
+    time_scale: float = 1.0
+    pool_time_scale: Optional[Mapping[str, float]] = None
     device: str = "cuda"
     reduced: bool = True
     _engines: Dict[str, Any] = field(default_factory=dict, repr=False)
@@ -128,6 +136,12 @@ class EngineBackend:
             self._engines[arch_name] = eng
         return eng
 
+    def scale_for(self, pool: str) -> float:
+        """The time scale of one pool (``time_scale`` if unmapped)."""
+        if self.pool_time_scale is not None and pool in self.pool_time_scale:
+            return float(self.pool_time_scale[pool])
+        return self.time_scale
+
     def service_s(self, server, batch: Sequence[Any], now_s: float,
                   rng: np.random.Generator) -> float:
         graph = self._graphs[getattr(server, "app", "")]
@@ -145,7 +159,7 @@ class EngineBackend:
         wall = time.monotonic() - t0
         # a fixed-shape engine may need several launches for a big batch
         launches = -(-len(batch) // eng.cfg.max_batch)
-        return wall * launches
+        return wall * launches * self.scale_for(server.tup.pool)
 
     def on_capacity_change(self, servers):
         pass

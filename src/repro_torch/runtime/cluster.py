@@ -7,9 +7,10 @@ pluggable :class:`~repro_torch.runtime.backend.ExecutionBackend` that only turns
 :class:`~repro_torch.runtime.scenario.Scenario` objects.  The legacy
 ``Simulator`` of the JAX package is a thin shim over
 ``ClusterRuntime(SimBackend())`` and stays seed-deterministic; this copy
-gives field-exact the same ``SimMetrics``.  Transition plans, cluster
-specs, monitors, ladders and hooks are duck-typed arguments: the port has
-no planner, hardware catalogue or chaos plane yet.
+gives field-exact the same ``SimMetrics``.  The cluster is the port's
+:class:`~repro_torch.hwspec.ClusterSpec`; transition plans, monitors,
+ladders and hooks are duck-typed arguments: the port has no
+reconfiguration or chaos plane yet.
 
 When a :class:`~repro_torch.core.frontend.Frontend` is attached it is the
 runtime's intake: it stamps request ids and deadlines (effective SLO incl.
@@ -33,7 +34,8 @@ import heapq
 import itertools
 import math
 from dataclasses import dataclass
-from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple
+from typing import (TYPE_CHECKING, Any, Dict, List, Mapping, Optional,
+                    Sequence, Tuple)
 
 import numpy as np
 
@@ -45,6 +47,9 @@ from repro_torch.runtime.backend import ExecutionBackend, SimBackend
 from repro_torch.runtime.metrics import Server, SimMetrics
 from repro_torch.runtime.scenario import (CapacityEvent, DomainFailureEvent,
                                     FailureEvent, PreemptionEvent, Scenario)
+
+if TYPE_CHECKING:   # pragma: no cover — typing only
+    from repro_torch.hwspec import ClusterSpec
 
 # queue sweep cadence while chaos events are in play: dead-task queues
 # get no poll events, so without a periodic scan their requests would
@@ -78,7 +83,7 @@ class ClusterRuntime:
                  seed: int = 0, staleness_ms: float = 20.0,
                  frontend=None, time_base_s: float = 0.0,
                  transition: Optional[Any] = None,
-                 cluster: Optional[Any] = None,
+                 cluster: Optional["ClusterSpec"] = None,
                  monitor=None, ladder=None, hooks=None,
                  fast: bool = True):
         self._setup({"": _AppState("", graph, config, frontend)},
@@ -94,7 +99,7 @@ class ClusterRuntime:
               frontends: Optional[Mapping[str, object]] = None,
               time_base_s: float = 0.0,
               transition: Optional[Any] = None,
-              cluster: Optional[Any] = None,
+              cluster: Optional["ClusterSpec"] = None,
               monitor=None, ladder=None, hooks=None,
               fast: bool = True) -> "ClusterRuntime":
         """Serve several co-located apps on one event loop.
@@ -122,7 +127,7 @@ class ClusterRuntime:
                backend: Optional[ExecutionBackend], *, seed: int,
                staleness_ms: float, time_base_s: float,
                transition: Optional[Any] = None,
-               cluster: Optional[Any] = None,
+               cluster: Optional["ClusterSpec"] = None,
                monitor=None, ladder=None, hooks=None, fast: bool = True):
         self._apps = apps
         # event-loop selection (DESIGN.md §16): the vectorized calendar

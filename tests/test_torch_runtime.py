@@ -9,12 +9,15 @@ ledgers.  The copied app graphs are held field by field against the
 originals, and the port's ``EngineBackend`` drives the port's runtime on
 the reduced configs on the CPU.
 
-Plans come from the JAX planner once per module, with a node budget that
-binds long before the wall-clock one (``bb_time_s`` is far above what the
-plans take, so CPU load cannot change them); both runtimes get the same
-plan, converted field by field into the port's ``PlanConfig``.
+Each runtime gets the plan of its own package's planner on its own
+package's cluster, once per module, with a node budget that binds long
+before the wall-clock one (``bb_time_s`` is far above what the plans take,
+so CPU load cannot change them); the port's plan is held field by field
+against the JAX planner's.
 """
 import dataclasses
+
+import numpy as np
 
 import pytest
 
@@ -28,7 +31,10 @@ from repro.hwspec import chaos_cluster  # noqa: E402
 from repro import runtime as jrt  # noqa: E402
 
 from repro_torch.core import apps as port_apps  # noqa: E402
+from repro_torch.core.milp import Planner as PortPlanner  # noqa: E402
 from repro_torch.core.milp import PlanConfig, TupleVar  # noqa: E402
+from repro_torch.core.profiler import Profiler as PortProfiler  # noqa: E402
+from repro_torch.hwspec import chaos_cluster as port_chaos_cluster  # noqa: E402
 from repro_torch import runtime as prt  # noqa: E402
 from repro_torch.runtime.metrics import diff_metrics  # noqa: E402
 
@@ -49,19 +55,29 @@ def _port_plan(graph, cfg) -> PlanConfig:
                       else dict(cfg.pool_budgets)))
 
 
+def _plans(name: str, rps: float, cluster=None, pcluster=None):
+    """``name`` planned for ``rps`` by the JAX planner and by the port's,
+    each on its own package's graph, profiler and cluster."""
+    graph, pgraph = jax_apps.get_app(name), port_apps.get_app(name)
+    kw = {} if cluster is None else dict(cluster=cluster)
+    pkw = {} if pcluster is None else dict(cluster=pcluster)
+    jprof, pprof = Profiler(graph, **kw), PortProfiler(pgraph, **pkw)
+    cfg = Planner(graph, jprof, s_avail=jprof.cluster.total_units,
+                  **PLAN_KW).plan(rps)
+    pcfg = PortPlanner(pgraph, pprof, s_avail=pprof.cluster.total_units,
+                       **PLAN_KW).plan(rps)
+    assert cfg is not None and pcfg is not None
+    return (graph, cfg), (pgraph, pcfg)
+
+
 @pytest.fixture(scope="module")
 def fleet():
-    """social_media on the JAX chaos cluster (two racks, a spot pool),
-    planned for 15 rps; the cluster is handed to both runtimes as it is
-    (the port's runtime reads it duck-typed)."""
-    cluster = chaos_cluster()
-    graph = jax_apps.get_app("social_media")
-    planner = Planner(graph, Profiler(graph, cluster=cluster),
-                      s_avail=cluster.total_units, **PLAN_KW)
-    cfg = planner.plan(15.0)
-    assert cfg is not None
-    pgraph = port_apps.get_app("social_media")
-    return cluster, (graph, cfg), (pgraph, _port_plan(pgraph, cfg))
+    """social_media on the chaos cluster (two racks, a spot pool), planned
+    for 15 rps: the JAX package's cluster and plan for its runtime, the
+    port's for the port's."""
+    cluster, pcluster = chaos_cluster(), port_chaos_cluster()
+    return (cluster, pcluster), *_plans("social_media", 15.0, cluster,
+                                        pcluster)
 
 
 def _scenario(mod, name: str):
@@ -97,12 +113,12 @@ def _assert_same(want, got, what: str):
 @pytest.mark.parametrize("fast", [True, False], ids=["fast", "legacy"])
 @pytest.mark.parametrize("name", SCENARIOS)
 def test_cluster_runtime_matches_jax(fleet, name, fast):
-    cluster, (graph, cfg), (pgraph, pcfg) = fleet
+    (cluster, pcluster), (graph, cfg), (pgraph, pcfg) = fleet
     want = jrt.ClusterRuntime(graph, cfg, jrt.SimBackend(), seed=0,
                               cluster=cluster, fast=fast).run(
         _scenario(jrt, name))
     got = prt.ClusterRuntime(pgraph, pcfg, prt.SimBackend(), seed=0,
-                             cluster=cluster, fast=fast).run(
+                             cluster=pcluster, fast=fast).run(
         _scenario(prt, name))
     _assert_same(want, got, f"{name} ({'fast' if fast else 'legacy'})")
     if name == "domain_failure":
@@ -115,12 +131,7 @@ def test_cluster_runtime_matches_jax(fleet, name, fast):
 def test_multi_app_matches_jax(fast):
     apps, papps = {}, {}
     for name in ("social_media", "traffic_analysis"):
-        g = jax_apps.get_app(name)
-        cfg = Planner(g, Profiler(g), s_avail=64, **PLAN_KW).plan(20.0)
-        assert cfg is not None
-        apps[name] = (g, cfg)
-        pg = port_apps.get_app(name)
-        papps[name] = (pg, _port_plan(pg, cfg))
+        apps[name], papps[name] = _plans(name, 20.0)
     want = jrt.ClusterRuntime.multi(apps, jrt.SimBackend(), seed=1,
                                     fast=fast).run(jrt.Scenario.multi(
         {n: jrt.PoissonArrivals(15.0) for n in apps},
@@ -153,9 +164,15 @@ def test_apps_are_copies(name):
 
 
 def test_plan_config_matches_jax(fleet):
-    """The copied PlanConfig derives the same slices, latencies,
+    """The port's planner gives the JAX planner's plan, field by field,
+    and the copied PlanConfig derives the same slices, latencies,
     throughputs and exact accuracy objective as the original."""
-    cluster, (graph, cfg), (_, pcfg) = fleet
+    (cluster, _), (graph, cfg), (pgraph, pcfg) = fleet
+    want = _port_plan(pgraph, cfg)
+    assert pcfg.counts == want.counts
+    assert pcfg.tuples == want.tuples
+    assert pcfg.demand == want.demand
+    assert pcfg.pool_budgets == want.pool_budgets
     assert pcfg.slices == cfg.slices
     assert pcfg.pool_slices() == cfg.pool_slices()
     assert pcfg.worst_path_latency() == cfg.worst_path_latency()
@@ -171,7 +188,7 @@ def test_plan_config_matches_jax(fleet):
 
 
 def test_pool_and_domain_names_are_checked(fleet):
-    cluster, (graph, cfg), (pgraph, pcfg) = fleet
+    (_, cluster), (graph, cfg), (pgraph, pcfg) = fleet
     from repro_torch.hwspec import (DEFAULT_POOL, validate_domain_names,
                                     validate_pool_names)
     from repro.hwspec import DEFAULT_POOL as JAX_DEFAULT_POOL
@@ -215,3 +232,42 @@ def test_engine_backend_drives_port_runtime():
     assert set(be._engines) == {"gemma-2b", "granite-3-2b", "qwen2-7b"}
     assert 0.0 <= m.violation_rate <= 1.0
     assert 0.0 < m.realized_a_obj(g) <= 1.0 + 1e-9
+
+
+@pytest.mark.parametrize("pool,n", [("h100", 1), ("mig", 3), ("v5e", 2),
+                                    ("spot", 4)])
+def test_engine_backend_time_scales(monkeypatch, pool, n):
+    """``time_scale`` and ``pool_time_scale`` scale the measured wall as
+    the reference's ``EngineBackend.scale_for`` does: a mapped pool by its
+    own scale, an unmapped one by ``time_scale``, times the launches a
+    batch of ``n`` needs.  The clock is stubbed, so the wall is exact."""
+    from types import SimpleNamespace
+    from repro_torch.runtime import backend as port_backend
+
+    g = port_apps.get_app("social_media")
+    scales = {"h100": 4.0, "mig": 0.25}
+    wall = 0.125
+    ticks = iter([10.0, 10.0 + wall, 20.0, 20.0 + wall])
+    monkeypatch.setattr(port_backend, "time",
+                        SimpleNamespace(monotonic=lambda: next(ticks)))
+    be = prt.EngineBackend(max_batch=2, max_seq=16, prompt_len=4, max_new=2,
+                           device="cpu", time_scale=2.5,
+                           pool_time_scale=scales)
+    plain = prt.EngineBackend(max_batch=2, max_seq=16, prompt_len=4,
+                              max_new=2, device="cpu")
+    ref = jrt.EngineBackend(max_batch=2, time_scale=2.5,
+                            pool_time_scale=scales)
+    for b in (be, plain):
+        b.bind(g, None)
+    plain._engines = be._engines      # one engine build for both
+    v = g.tasks["ingest"].variant("gemma-2b")
+    server = SimpleNamespace(app="", tup=TupleVar(
+        "ingest", v.name, "1x1s1", 2, latency_ms=1.0, throughput=1.0,
+        cost=1, accuracy=v.accuracy, pool=pool))
+    launches = -(-n // 2)
+    rng = np.random.default_rng(0)
+    got = be.service_s(server, [None] * n, 0.0, rng)
+    assert be.scale_for(pool) == ref.scale_for(pool)
+    assert got == wall * launches * ref.scale_for(pool)
+    assert plain.service_s(server, [None] * n, 0.0, rng) == wall * launches
+    assert plain.scale_for(pool) == 1.0
