@@ -91,6 +91,20 @@ Phases, each printing one JSON line; any failure exits non-zero:
               scale; every root arrival ends completed or dropped, each
               arch's flash and decode launches are exact, and each served
               tuple's planned latency is printed beside its services.
+10. control -- the adaptive control loop on the same engines: the port's
+              Controller steps social_media through 8 bins of 4 s of a
+              diurnal trace (seed 2; its peak is 4 rps unless one card's
+              plan only changes above that, then raised until the
+              predicted demand crosses the first change), re-planning on
+              the fitted h100_cluster(1), executing each plan change as a
+              staged transition, with a failure detector, an emergency
+              re-planner, a degradation ladder and instrumentation
+              (tracer, SLO plane, audit log) attached; bin 4 loses 1
+              g-unit of 7.  Every root ends completed or dropped in every
+              bin, >= 2 bins re-plan and one runs a transition with loads,
+              the lost unit reaches bin 5's planner, launches are exact
+              per arch, and the hooks' counters, spans and audit events
+              agree with the bins' SimMetrics.
 
 The second-to-last line is ``{"kernels": [...]}``, one row per kernel at
 its main serving shape (four for quant_matmul: prefill and decode, each
@@ -1441,24 +1455,32 @@ def _slo_scale(graph, services: dict) -> tuple:
                / (graph.slo_latency_ms / 1e3)), longest
 
 
+def _scaled_on(graph, dev, devices: int, slo_scale: float):
+    """The app's graph with its latency SLO scaled by ``slo_scale``, the
+    cluster of ``devices`` H100s of device spec ``dev`` (``h100_cluster``)
+    and the profiler of the one on the other (``PLAN_BATCHES``)."""
+    import dataclasses
+    from repro_torch.core.profiler import Profiler
+    from repro_torch.hwspec import ClusterSpec, h100_cluster
+
+    (pool,) = h100_cluster(devices).pools
+    cluster = ClusterSpec(pools=(dataclasses.replace(pool, device=dev),))
+    g = dataclasses.replace(graph,
+                            slo_latency_ms=graph.slo_latency_ms * slo_scale)
+    return g, cluster, Profiler(g, cluster=cluster, batches=PLAN_BATCHES)
+
+
 def _plan_on(graph, dev, devices: int, rps: float, slo_scale: float):
     """The port's planner on ``devices`` H100s of device spec ``dev``
     (``h100_cluster``), the app's latency SLO scaled by ``slo_scale``, and
     the plan packed by the pool's MIG packer.  Returns the planner, the
     plan (None if there is none), the placements (None if the plan does
     not pack), the packer and the planner's host seconds."""
-    import dataclasses
     from repro_torch.core.milp import Planner
     from repro_torch.core.placement import make_placer
-    from repro_torch.core.profiler import Profiler
-    from repro_torch.hwspec import ClusterSpec, h100_cluster
 
-    (pool,) = h100_cluster(devices).pools
-    pool = dataclasses.replace(pool, device=dev)
-    cluster = ClusterSpec(pools=(pool,))
-    g = dataclasses.replace(graph,
-                            slo_latency_ms=graph.slo_latency_ms * slo_scale)
-    prof = Profiler(g, cluster=cluster, batches=PLAN_BATCHES)
+    g, cluster, prof = _scaled_on(graph, dev, devices, slo_scale)
+    (pool,) = cluster.pools
     planner = Planner(g, prof, s_avail=cluster.total_units, **PLAN_KW)
     t0 = time.monotonic()
     cfg = planner.plan(rps)
@@ -1599,8 +1621,9 @@ def phase_plan(torch, card, seed: int) -> dict:
     MigSlicePacker packs, and the plan for four cards at ten times the
     rate, printed only.  The timed runs are this phase's path: the
     kernels' counts are set to 0 before them and checked after.  Returns
-    what the compound phase serves: the backend with its engines, the
-    plan, the scale and the measured services."""
+    what the compound and control phases serve: the backend with its
+    engines, the plan, the scale, the measured services, the fitted spec
+    and the measured pinned H2D rate."""
     import numpy as np
     from repro_torch.core.apps import get_app
     from repro_torch.hwspec import H100_SXM
@@ -1672,7 +1695,8 @@ def phase_plan(torch, card, seed: int) -> dict:
         raise AssertionError("plan: the plan does not pack on one H100")
     return {"backend": backend, "graph": graph, "cfg": cfg,
             "slo_scale": slo_scale, "longest_path_s": longest,
-            "services": service}
+            "services": service, "fitted": fitted,
+            "h2d_bytes_per_s": spec["pinned_h2d_bytes_per_s"]}
 
 
 def phase_compound(torch, card, seed: int, planned: dict) -> dict:
@@ -1805,6 +1829,434 @@ def phase_compound(torch, card, seed: int, planned: dict) -> dict:
     return counted.launches
 
 
+class _Tee:
+    """The control phase's hooks: every call goes to ``inner`` (the
+    phase's ``Instrumentation``, whose other attributes it stands in for);
+    root arrivals, leaf outcomes and dispatches also go to the current
+    bin's ``_Ledger``, and each dispatch's start to ``starts``."""
+
+    def __init__(self, inner):
+        self.inner, self.ledger, self.starts = inner, None, []
+
+    def __getattr__(self, name):
+        return getattr(self.inner, name)
+
+    def on_arrival(self, app, task, now, queue_len):
+        self.inner.on_arrival(app, task, now, queue_len)
+        self.ledger.on_arrival(app, task, now, queue_len)
+
+    def on_drop(self, app, task, reason, n, now, root_id=-1):
+        self.inner.on_drop(app, task, reason, n, now, root_id=root_id)
+        self.ledger.on_drop(app, task, reason, n, now, root_id=root_id)
+
+    def on_complete(self, app, root_id, latency_ms, missed, now):
+        self.inner.on_complete(app, root_id, latency_ms, missed, now)
+        self.ledger.on_complete(app, root_id, latency_ms, missed, now)
+
+    def on_dispatch(self, server, batch, now, service_s, queue_len):
+        self.inner.on_dispatch(server, batch, now, service_s, queue_len)
+        self.ledger.on_dispatch(server, batch, now, service_s, queue_len)
+        self.starts.append((server.tup.key, now))
+
+
+# The control phase: the port's Controller steps social_media through
+# CONTROL_BINS bins of a diurnal trace (seed 2: rising from 0.33 of its
+# peak to the peak in bin 6, so the predicted demand drifts past the
+# controller's 10 % re-plan threshold from bin to bin), CONTROL_BIN_S
+# simulated seconds a bin.  The peak is the compound rate unless one card's
+# plan is the same from the trace's low end to there: then it is raised
+# until the controller's predicted demand passes, by CONTROL_OVERSHOOT, the
+# first rate of CONTROL_SWEEP_RPS at which the plan changes (at PR 16's fit
+# the one-card plan is one 1g instance per task from 0.02 to 20 rps).  In
+# bin CONTROL_LOSS_BIN the provider reclaims CONTROL_LOSS_UNITS g-units of
+# the card's 7 (a PreemptionEvent); one card still plans on the 6 that
+# remain.  The emergency monitor judges 1 s windows of at least 6 leaf
+# outcomes (its default 0.5 s and 10 never fill at the low rates).
+CONTROL_TRACE_SEED, CONTROL_BINS, CONTROL_BIN_S = 2, 8, 4.0
+CONTROL_SWEEP_RPS = tuple(round(COMPOUND_RPS * 1.25 ** k, 6)
+                          for k in range(-8, 14))     # 0.67 .. 73 rps
+CONTROL_OVERSHOOT = 1.1
+CONTROL_LOSS_BIN, CONTROL_LOSS_AT_S, CONTROL_LOSS_NOTICE_S = 4, 1.5, 0.5
+CONTROL_LOSS_UNITS = 1
+CONTROL_MONITOR = dict(interval_s=1.0, min_requests=6)
+CONTROL_STICKINESS = 0.05     # the emergency planner's, as the chaos tests'
+
+
+def _transition_rows(graph, pool, tr, h2d: float) -> dict:
+    """A staged transition's actions and makespan, and beside each load
+    its weight bytes over the preset's staging bandwidth (the planner's
+    warm-up) and over the pinned H2D rate the plan phase measured, each
+    on the slice's share of the path (``memory_fraction``)."""
+    from repro_torch.configs import ARCHS
+    dev = pool.device
+    actions, load_s = [], {"preset": [], "measured": []}
+    for a in tr.keeps + tr.drains + tr.loads:
+        row = {"kind": a.kind, "task": a.tup.task, "variant": a.tup.variant,
+               "slice": a.tup.segment, "batch": a.tup.batch,
+               "count": a.count, "ready_s": a.ready_s,
+               "retire_s": a.retire_s, "carved": a.carved}
+        if a.kind == "load":
+            sl = next(s for s in pool.scheme.slices()
+                      if s.name == a.tup.segment)
+            v = graph.tasks[a.tup.task].variant(a.tup.variant)
+            nbytes = (ARCHS[v.arch].param_count()[0]
+                      * dev.param_bytes(v.quant) / max(sl.devices, 1))
+            row.update(weight_bytes=nbytes,
+                       load_s_at_preset_staging=dev.weight_load_s(
+                           nbytes, sl.memory_fraction),
+                       load_s_at_measured_h2d=nbytes / (
+                           h2d * sl.memory_fraction))
+            load_s["preset"].append(row["load_s_at_preset_staging"])
+            load_s["measured"].append(row["load_s_at_measured_h2d"])
+        actions.append(row)
+    return {"actions": actions, "makespan_s": tr.makespan_s,
+            "n_actions": tr.n_actions,
+            "repartition_pools": sorted(tr.repartition_pools),
+            "blocked_pools": sorted(tr.blocked_pools),
+            "longest_load_s_at_preset_staging": max(load_s["preset"],
+                                                    default=0.0),
+            "longest_load_s_at_measured_h2d": max(load_s["measured"],
+                                                  default=0.0),
+            "preset_staging_bw": dev.staging_bw,
+            "measured_h2d_bytes_per_s": h2d}
+
+
+def _control_peak(graph, cluster, prof) -> dict:
+    """The control trace's peak: ``COMPOUND_RPS`` if the port's planner on
+    ``cluster`` deploys other instances at some rate of CONTROL_SWEEP_RPS
+    above the trace's low end but below the controller's highest predicted
+    demand; else the peak at which that prediction passes the first such
+    rate by CONTROL_OVERSHOOT.  A fresh planner plans each rate."""
+    from repro_torch.core.milp import Planner
+    from repro_torch.core.trace import diurnal_trace, predict_demand
+
+    unit = diurnal_trace(seed=CONTROL_TRACE_SEED, bins=CONTROL_BINS).rps
+    pred = max(predict_demand(list(unit[:i + 1])) for i in range(len(unit)))
+
+    def deployed(rps):
+        cfg = Planner(graph, prof, s_avail=cluster.total_units,
+                      **PLAN_KW).plan(rps)
+        return None if cfg is None else sorted(
+            (t.key, m) for t, m in cfg.instances())
+
+    low = float(unit.min()) * COMPOUND_RPS / float(unit.max())
+    base, change = deployed(low), None
+    for rps in CONTROL_SWEEP_RPS:
+        plan = deployed(rps) if rps > low else None
+        if plan is not None and plan != base:
+            change = rps
+            break
+    if change is None:
+        raise AssertionError(f"control: one card's plan is the same from "
+                             f"{low} to {CONTROL_SWEEP_RPS[-1]} rps")
+    peak = max(COMPOUND_RPS, CONTROL_OVERSHOOT * change * float(unit.max())
+               / pred)
+    return {"peak_rps": peak, "first_change_rps": change, "low_rps": low,
+            "max_predicted_over_peak": pred / float(unit.max())}
+
+
+def _counts(parsed: dict, family: str, label: str = "") -> dict:
+    """One exposition family's samples summed by the value of ``label``
+    (one total under "" when ``label`` is empty)."""
+    out = {}
+    for labels, v in parsed.get(family, {}).items():
+        k = dict(labels).get(label, "") if label else ""
+        out[k] = out.get(k, 0.0) + v
+    return out
+
+
+def phase_control(torch, card, seed: int, planned: dict) -> dict:
+    """The adaptive control loop on the card: the port's ``Controller``
+    drives social_media bin by bin on the plan phase's
+    ``EngineBackend(reduced=False)`` (full-width gemma-2b, granite-3-2b and
+    qwen2-7b in bf16, engines built and decode steps graphed once), its
+    planner on the fitted ``H100_SXM`` of ``h100_cluster(1)`` with the
+    plan phase's deadline scale.  Each bin predicts demand, re-plans when
+    it drifts or the last bin's violations spike, executes the plan change
+    as a staged transition (``TransitionPlanner``: old instances drain,
+    new ones serve from their modelled warm-up), and serves Poisson
+    traffic at the bin's demand; a ``FailureDetector`` carries one bin's
+    capacity loss into the next bin's planner, an ``EmergencyReplanner``
+    and a ``DegradationLadder`` ride on every bin's runtime, and an
+    ``Instrumentation`` (tracer, SLO plane, audit log) sees every hook.
+
+    It fails unless, in every bin, each root ends completed or dropped at
+    each of its leaves and the queues drain; at least two bins re-plan and
+    one executes a staged transition with loads whose new instances serve
+    inside the bin, each bin's runtime running exactly the transition its
+    report charges; the detector's dead units after the loss bin equal
+    what that bin's runtime lost, reach the next bin's planner, and its
+    plan fits in what remains; each arch's launches are one flash launch
+    per layer per service call and one decode launch per layer per decode
+    step; and the registry's counters equal the bins' ``SimMetrics``, the
+    trace holds a hop, queue and service span for every sub-request
+    served, and the audit log one re-plan event per planning pass and one
+    transition event per transition the runtime applied mid-bin.  MIG
+    carving and weight staging are modelled, not done: every instance is
+    served on the whole card, and a planned int8 variant runs in bf16.
+    Returns the launches per arch and kernel."""
+    import dataclasses
+    from repro_torch.chaos import (DegradationLadder, EmergencyReplanner,
+                                   FailureDetector)
+    from repro_torch.core.controller import Controller
+    from repro_torch.core.frontend import Frontend
+    from repro_torch.core.milp import Planner
+    from repro_torch.core.trace import diurnal_trace
+    from repro_torch.kernels import decode_attention as dmod
+    from repro_torch.kernels import flash_attention as fmod
+    from repro_torch.kernels import quant_matmul as qmod
+    from repro_torch.kernels import ssd_scan as smod
+    from repro_torch.obs import (AuditLog, Instrumentation, SloPlane,
+                                 Tracer, parse_exposition,
+                                 validate_chrome_trace)
+    from repro_torch.reconfig import TransitionPlanner
+    from repro_torch.runtime import PreemptionEvent, Scenario
+
+    t_phase = time.monotonic()
+    backend = planned["backend"]
+    graph, cluster, prof = _scaled_on(planned["graph"], planned["fitted"], 1,
+                                      planned["slo_scale"])
+    (pool,) = cluster.pools
+    leaves = len(graph.paths)
+    mods = {"flash_attention": fmod, "decode_attention": dmod,
+            "ssd_scan": smod, "quant_matmul": qmod}
+    counted = _PerArch(backend, mods)
+    hooks = Instrumentation(tracer=Tracer(), slo=SloPlane(), audit=AuditLog())
+    tee = _Tee(hooks)
+    detector = FailureDetector()
+    ladder = DegradationLadder(profiler=prof)
+    monitor = EmergencyReplanner(
+        Frontend(graph), planner=Planner(
+            graph, prof, s_avail=cluster.total_units,
+            stickiness=CONTROL_STICKINESS, **PLAN_KW),
+        reconfig=TransitionPlanner(cluster, graph), hooks=tee,
+        **CONTROL_MONITOR)
+    ctl = Controller(graph, prof, s_avail=cluster.total_units,
+                     cluster=cluster, planner_kwargs=dict(PLAN_KW),
+                     backend_factory=lambda: counted,
+                     reconfig=TransitionPlanner(cluster, graph),
+                     detector=detector, monitor=monitor, ladder=ladder,
+                     hooks=tee)
+    bins = []
+    make_runtime, staged_plan = ctl.make_runtime, ctl.reconfig.plan
+
+    def kept_runtime(**kw):
+        rt = make_runtime(**kw)
+        rec, run = bins[-1], rt.run
+        rec["runtime"] = rt
+
+        def kept_run(scenario):
+            rec["metrics"] = run(scenario)
+            return rec["metrics"]
+        rt.run = kept_run
+        return rt
+
+    def kept_plan(*args, **kw):
+        tr = staged_plan(*args, **kw)
+        bins[-1]["staged"].append(tr)
+        return tr
+
+    ctl.make_runtime, ctl.reconfig.plan = kept_runtime, kept_plan
+    peak = _control_peak(graph, cluster, prof)
+    rps = diurnal_trace(seed=CONTROL_TRACE_SEED, bins=CONTROL_BINS
+                        ).scaled_to_max(peak["peak_rps"]).rps
+    loss = PreemptionEvent(at_s=CONTROL_LOSS_AT_S, pool=pool.name,
+                           notice_s=CONTROL_LOSS_NOTICE_S,
+                           fraction=CONTROL_LOSS_UNITS / pool.capacity_units)
+    torch.cuda.reset_peak_memory_stats()
+    for mod in mods.values():
+        mod.launches = 0
+    for i, r in enumerate(rps):
+        tee.ledger, tee.starts = _Ledger(), []
+        bins.append({"ledger": tee.ledger, "starts": tee.starts,
+                     "staged": [], "dead_before": detector.dead_units()})
+        scenario = Scenario.poisson(float(r), duration_s=CONTROL_BIN_S,
+                                    warmup_s=0.0)
+        if i == CONTROL_LOSS_BIN:
+            scenario = scenario.with_chaos(loss)
+        t0 = time.monotonic()
+        rep = ctl.step(i, float(r), scenario=scenario, seed=seed + i)
+        hooks.registry.render()      # a scrape: the SLO plane evaluates
+        bins[-1].update(
+            report=rep, host_s=time.monotonic() - t0,
+            dead_after=detector.dead_units(),
+            planner_dead=dict(ctl.planner.dead_units),
+            pool_slices=ctl._config.pool_slices(),
+            emergency=monitor.replans, spikes=monitor.spikes,
+            ladder_level=ladder.level, alerts=hooks.slo.alerts_json())
+    totals = {k: mod.launches for k, mod in mods.items()}
+    fails = []
+
+    # 1. accounting, bin by bin
+    per_bin = []
+    for i, b in enumerate(bins):
+        rt, m, led = b["runtime"], b["metrics"], b["ledger"]
+        roots = set(rt._root_t)
+        left = sum(len(q) for q in rt.queues.values())
+        ok = (bool(roots) and set(led.outcomes) == roots
+              and all(n == leaves for n in led.outcomes.values())
+              and m.completions + m.dropped == leaves * len(roots)
+              and left == 0)
+        if not ok:
+            fails.append(f"bin {i}: {len(roots)} roots, "
+                         f"{len(led.outcomes)} with outcomes, "
+                         f"{m.completions} completions + {m.dropped} "
+                         f"dropped, {left} left in queues")
+        per_bin.append({
+            "bin": i, "rate_rps": float(rps[i]), "roots": len(roots),
+            "admitted": led.arrivals, "completions": m.completions,
+            "missed": m.missed, "dropped": m.dropped,
+            "drop_reasons": dict(m.drop_reasons),
+            "slo_attainment": 1.0 - m.violation_rate,
+            "within_app_slo": sum(
+                x <= planned["graph"].slo_latency_ms
+                for x in m.latencies_ms) / max(m.total_requests, 1),
+            "window_violation_rate": (m.window.violation_rate
+                                      if m.window is not None else None),
+            "transition_window_s": m.transition_window_s,
+            "dead_units": rt.dead_units(), "pool_slices": b["pool_slices"],
+            "planner_dead_units": b["planner_dead"],
+            "emergency_replans": b["emergency"], "spikes": b["spikes"],
+            "ladder_level": b["ladder_level"],
+            "alerts": b["alerts"]["alerts"], "host_s": b["host_s"],
+            "accounted": ok})
+
+    # 2. re-planning: each runtime runs the one transition its bin charges
+    transitions = []
+    for i, b in enumerate(bins):
+        rep, rt = b["report"], b["runtime"]
+        want = next((t for t in b["staged"] if not t.is_empty), None)
+        charged = (rep.transition_s, rep.transition_actions)
+        if rt._transition is not want or charged != (
+                (want.makespan_s, want.n_actions) if want else (0.0, 0)):
+            fails.append(f"bin {i}: charged {charged}, its runtime ran "
+                         f"{'a' if rt._transition else 'no'} transition, "
+                         f"its step planned "
+                         f"{'one' if want else 'none'}")
+        if want is None:
+            continue
+        served = {a.tup.key for a in want.loads for key, t in b["starts"]
+                  if key == a.tup.key and t >= a.ready_s - 1e-9}
+        transitions.append({"bin": i, "loads_served": len(served),
+                            **_transition_rows(graph, pool, want,
+                                               planned["h2d_bytes_per_s"])})
+    replanned = [b["report"].bin_idx for b in bins if b["report"].replanned]
+    executed = [t for t in transitions
+                if any(a["kind"] == "load" for a in t["actions"])]
+    if len(replanned) < 2 or not executed:
+        fails.append(f"re-planned in bins {replanned}; staged transitions "
+                     f"with loads: {len(executed)}")
+
+    # 3. detection: the loss reaches the next bin's plan
+    lost = bins[CONTROL_LOSS_BIN]["runtime"].dead_units()
+    after = bins[CONTROL_LOSS_BIN]["dead_after"]
+    nxt = bins[CONTROL_LOSS_BIN + 1]
+    room = pool.capacity_units - sum(after.values())
+    if (lost != {pool.name: CONTROL_LOSS_UNITS}
+            or bins[CONTROL_LOSS_BIN]["dead_before"] or after != lost
+            or not nxt["report"].replanned or nxt["planner_dead"] != after
+            or nxt["pool_slices"].get(pool.name, 0) > room
+            or any(b["runtime"].dead_units() for j, b in enumerate(bins)
+                   if j != CONTROL_LOSS_BIN)):
+        fails.append(f"detection: bin {CONTROL_LOSS_BIN} lost {lost}, the "
+                     f"detector holds {after}; bin {CONTROL_LOSS_BIN + 1} "
+                     f"re-planned {nxt['report'].replanned} with "
+                     f"{nxt['planner_dead']} dead, using "
+                     f"{nxt['pool_slices']} of {room}")
+
+    # 4. launches per arch, as in the compound phase
+    expect = {}
+    for arch_name, calls in counted.calls.items():
+        layers = backend._engines[arch_name].model.arch.num_layers
+        expect[arch_name] = {"flash_attention": layers * calls,
+                             "decode_attention":
+                                 layers * calls * (SERVE_NEW - 1),
+                             "ssd_scan": 0, "quant_matmul": 0}
+    if (not counted.calls or counted.launches != expect
+            or any(totals[k] != sum(c[k] for c in counted.launches.values())
+                   for k in mods)):
+        fails.append(f"launches {counted.launches} != {expect} "
+                     f"(totals {totals})")
+
+    # 5. instrumentation against the bins' SimMetrics
+    parsed = parse_exposition(hooks.registry.render())
+    ms = [b["metrics"] for b in bins]
+    want_reasons, want_served = {}, {}
+    for m in ms:
+        for k, n in m.drop_reasons.items():
+            want_reasons[k] = want_reasons.get(k, 0) + n
+        for (t, _), n in m.traffic.items():
+            want_served[t] = want_served.get(t, 0) + n
+    shed_roots = sum(m.drop_reasons.get(k, 0) for m in ms
+                     for k in ("admission", "shed")) / leaves
+    roots = sum(p["roots"] for p in per_bin)
+    emergency = sum(b["emergency"] for b in bins)
+    audit = {}
+    for e in hooks.audit.events:
+        audit[e.kind] = audit.get(e.kind, 0) + 1
+    spans = {}
+    events = validate_chrome_trace(hooks.tracer.chrome_trace())
+    for s in hooks.tracer.spans:
+        spans[s.cat] = spans.get(s.cat, 0) + 1
+    got = {
+        "arrivals": _counts(parsed, "jigsaw_arrivals_total").get("", 0.0),
+        "completions": _counts(parsed, "jigsaw_completions_total").get(
+            "", 0.0),
+        "missed": _counts(parsed, "jigsaw_missed_total").get("", 0.0),
+        "drops": _counts(parsed, "jigsaw_drops_total", "reason"),
+        "served": _counts(parsed, "jigsaw_served_total", "task"),
+        "replans": _counts(parsed, "jigsaw_replans_total").get("", 0.0),
+        "transitions": _counts(parsed, "jigsaw_transitions_total", "kind"),
+        "audit": audit, "spans": spans, "complete_events": len(events),
+        "spans_dropped": hooks.tracer.dropped}
+    want = {
+        "arrivals": float(sum(b["ledger"].arrivals for b in bins)),
+        "completions": float(sum(m.completions for m in ms)),
+        "missed": float(sum(m.missed for m in ms)),
+        "drops": {k: float(n) for k, n in want_reasons.items()},
+        "served": {k: float(n) for k, n in want_served.items()},
+        "replans": float(len(ctl.milp_times_ms)),
+        "transitions": {"emergency": float(emergency)} if emergency else {},
+        "spans": dict.fromkeys(("queue", "service", "hop"),
+                               int(sum(want_served.values())))}
+    inst_ok = (all(got[k] == want[k] for k in want if k != "spans")
+               and {k: spans.get(k, 0) for k in want["spans"]}
+               == want["spans"] and hooks.tracer.dropped == 0
+               and len(events) == len(hooks.tracer.spans)
+               and got["arrivals"] + shed_roots == roots
+               and audit.get("replan", 0) == len(ctl.milp_times_ms)
+               and audit.get("transition", 0) == emergency
+               and audit.get("emergency_replan", 0) == emergency)
+    if not inst_ok:
+        fails.append(f"instrumentation: {got} against {want} "
+                     f"({roots} roots, {shed_roots} shed at the gate)")
+    emit("control", card=card["nvidia_smi"], app=COMPOUND_APP,
+         plan_on="repro_torch Controller, h100_cluster(1) with the plan "
+                 "phase's fitted H100_SXM",
+         note="every planned instance is served on the whole card; MIG "
+              "carving and weight staging of a transition are modelled "
+              "(a loaded instance serves from its ready_s), not done; int8 "
+              "variants run in bf16 (EngineBackend ignores Variant.quant, "
+              "as the reference's does); attainment has no limit yet",
+         trace={"seed": CONTROL_TRACE_SEED, "bins": CONTROL_BINS, **peak,
+                "rps": [float(r) for r in rps]},
+         bin_s=CONTROL_BIN_S, seed=seed, slo_scale=planned["slo_scale"],
+         loss={"bin": CONTROL_LOSS_BIN, "event": dataclasses.asdict(loss),
+               "units": CONTROL_LOSS_UNITS, "of": pool.capacity_units},
+         reports=[dataclasses.asdict(b["report"]) for b in bins],
+         bins=per_bin, transitions=transitions, replanned_bins=replanned,
+         detector_dead_units=detector.dead_units(),
+         monitor=CONTROL_MONITOR, registry=got, expected=want,
+         service_calls=counted.calls, launches=counted.launches,
+         expected_launches=expect,
+         phase_host_wall_s=time.monotonic() - t_phase,
+         max_memory_allocated_bytes=torch.cuda.max_memory_allocated(),
+         failures=fails)
+    if fails:
+        raise AssertionError("control: " + "; ".join(fails))
+    return counted.launches
+
+
 # ---------------------------------------------------------------------------
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -1840,6 +2292,7 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
     planned = phase_plan(torch, card, args.seed)
     compound_launches = phase_compound(torch, card, args.seed, planned)
+    phase_control(torch, card, args.seed, planned)
     for row in rows:
         if row["name"] == "quant_matmul":   # no serve run calls it
             row["launches"] = int8_launches[row["model"]][row["layout"]]

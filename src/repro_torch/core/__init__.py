@@ -3,8 +3,7 @@
 Compound-inference serving with joint optimization of (A) per-task model
 variants, (S) fine-grained accelerator slice allocation, and (T) task-graph-
 informed latency/accuracy/resource budgeting — paper Eq. 1-14 plus the
-runtime (batching, early-drop, placement).  The controller
-(``Controller``, ``MultiAppController``) comes to the port in a later slice.
+runtime (batching, early-drop, controller loop, placement).
 """
 import importlib
 
@@ -18,6 +17,7 @@ from repro_torch.core.registry import (Registration, RegistrationError,
                                        register)
 from repro_torch.core.frontend import Frontend
 from repro_torch.core.apps import APPS, get_app
+from repro_torch.core.controller import Controller, MultiAppController
 from repro_torch.core.simulator import SimMetrics, Simulator
 
 # runtime re-exports resolve lazily (PEP 562): repro_torch.runtime and
@@ -43,8 +43,8 @@ __all__ = [
     "APPS", "AppSpec", "Task", "TaskGraph", "Variant", "FeatureSet",
     "JointPlan", "JointPlanner", "Key", "PlanConfig", "Planner",
     "Profiler", "Registration", "RegistrationError", "register",
-    "Frontend", "SimMetrics", "Simulator", "TupleVar", "get_app", "qualify",
-    "split_qualified",
+    "Controller", "Frontend", "MultiAppController", "SimMetrics",
+    "Simulator", "TupleVar", "get_app", "qualify", "split_qualified",
     "ClusterRuntime", "ExecutionBackend", "SimBackend", "EngineBackend",
     "Scenario",
 ]

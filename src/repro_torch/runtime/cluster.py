@@ -9,8 +9,12 @@ pluggable :class:`~repro_torch.runtime.backend.ExecutionBackend` that only turns
 ``ClusterRuntime(SimBackend())`` and stays seed-deterministic; this copy
 gives field-exact the same ``SimMetrics``.  The cluster is the port's
 :class:`~repro_torch.hwspec.ClusterSpec`; transition plans, monitors,
-ladders and hooks are duck-typed arguments: the port has no
-reconfiguration or chaos plane yet.
+ladders and hooks are the port's own
+:class:`~repro_torch.reconfig.TransitionPlan`,
+:class:`~repro_torch.chaos.EmergencyReplanner`,
+:class:`~repro_torch.chaos.DegradationLadder` and
+:class:`~repro_torch.obs.Instrumentation`, taken duck-typed as the JAX
+package takes them.
 
 When a :class:`~repro_torch.core.frontend.Frontend` is attached it is the
 runtime's intake: it stamps request ids and deadlines (effective SLO incl.
