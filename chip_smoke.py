@@ -105,6 +105,21 @@ Phases, each printing one JSON line; any failure exits non-zero:
               the lost unit reaches bin 5's planner, launches are exact
               per arch, and the hooks' counters, spans and audit events
               agree with the bins' SimMetrics.
+11. gateway -- the serving front door on the same engines: the port's
+              AsyncGateway serves social_media live behind its HTTP server
+              on 127.0.0.1 (an ephemeral port), on the plan phase's plan
+              with the SLO at that phase's scale and instrumentation
+              (tracer, SLO plane, audit log) attached; the port's load
+              generator sends Poisson 4 rps for 10 s from --seed over HTTP,
+              then one streamed submit, and /metrics, /trace, /alerts,
+              /audit and /healthz are scraped.  Every submission resolves
+              and one at least is ok, no root is left, the scraped
+              counters agree with the load report, the trace holds a
+              queue and a service span per hop, the stream ends in done
+              on deployed variants, and launches are exact per arch; the
+              host seconds each inline service_s blocked the event loop,
+              each batch's end beside its service, and the launches to a
+              server still serving an earlier batch are printed.
 
 The second-to-last line is ``{"kernels": [...]}``, one row per kernel at
 its main serving shape (four for quant_matmul: prefill and decode, each
@@ -1331,11 +1346,13 @@ class _Ledger:
 class _PerArch:
     """An ExecutionBackend around another that files the kernel launches
     of each service call under the arch it served (a call is synchronous,
-    so the counters' change during it is its own)."""
+    so the counters' change during it is its own), and keeps the host
+    seconds each call holds its caller (``walls``)."""
 
     def __init__(self, inner, mods):
         self.inner, self.mods = inner, mods
         self.graphs, self.calls, self.launches = {}, {}, {}
+        self.walls = []
 
     def bind(self, graph, config, app=""):
         self.graphs[app] = graph
@@ -1348,7 +1365,9 @@ class _PerArch:
         graph = self.graphs[server.app]
         arch = graph.tasks[server.tup.task].variant(server.tup.variant).arch
         before = {k: m.launches for k, m in self.mods.items()}
+        t0 = time.monotonic()
         service = self.inner.service_s(server, batch, now_s, rng)
+        self.walls.append(time.monotonic() - t0)
         per = self.launches.setdefault(arch, dict.fromkeys(self.mods, 0))
         for k, m in self.mods.items():
             per[k] += m.launches - before[k]
@@ -2257,6 +2276,288 @@ def phase_control(torch, card, seed: int, planned: dict) -> dict:
     return counted.launches
 
 
+# The gateway phase: the compound phase's traffic (Poisson at COMPOUND_RPS
+# for COMPOUND_S seconds from --seed) sent over HTTP on the loopback to the
+# port's AsyncGateway, which serves it live (time_scale 1) on the plan
+# phase's plan and engines.  GATEWAY_LIMIT_S bounds the whole exchange (load,
+# drain, streamed submit, scrapes); a root that never resolves fails it.
+GATEWAY_HOST = "127.0.0.1"
+GATEWAY_RPS, GATEWAY_S = COMPOUND_RPS, COMPOUND_S
+GATEWAY_LIMIT_S = 180.0
+
+
+class _Dispatches:
+    """The gateway phase's hooks: every call goes to ``inner`` (the phase's
+    ``Instrumentation``, whose other attributes it stands in for), and each
+    dispatch is also kept: server, batch, start, service, the host seconds
+    its ``service_s`` blocked the loop (the last of ``counted.walls``), and
+    how many earlier batches of that server were still in their ``_serve``.
+    ``watch`` wraps a gateway's ``_serve`` so that each batch's end is kept
+    too: its hops' latencies, and how many later launches' ``busy_until``
+    it overwrote."""
+
+    def __init__(self, inner, counted):
+        self.inner, self.counted = inner, counted
+        self.dispatches, self.open = [], {}
+
+    def __getattr__(self, name):
+        return getattr(self.inner, name)
+
+    def on_dispatch(self, server, batch, now, service_s, queue_len):
+        self.inner.on_dispatch(server, batch, now, service_s, queue_len)
+        pending = self.open.setdefault(server.idx, [])
+        rec = {"server": server.idx, "task": server.tup.task,
+               "variant": server.tup.variant, "batch": len(batch),
+               "start_s": now, "service_s": service_s,
+               "blocked_s": self.counted.walls[-1],
+               "earlier_in_serve": len(pending),
+               "enqueue_s": [r.enqueue_t for r in batch]}
+        pending.append((batch, rec))
+        self.dispatches.append(rec)
+
+    def watch(self, gw):
+        serve = gw._serve
+
+        async def watched(srv, qt, batch, service):
+            await serve(srv, qt, batch, service)
+            pending = self.open[srv.idx]
+            i = next(i for i, (b, _) in enumerate(pending) if b is batch)
+            _, rec = pending.pop(i)
+            end = srv.busy_until            # _serve's own clock reading
+            rec["done_s"] = end
+            rec["hop_ms"] = [(end - t) * 1e3 for t in rec.pop("enqueue_s")]
+            rec["overwrote"] = sum(r["start_s"] + r["service_s"] > end
+                                   for _, r in pending)
+        gw._serve = watched
+
+
+async def _fetch(port: int, method: str, path: str) -> tuple:
+    """One HTTP/1.1 request on the loopback: status, head and body."""
+    import asyncio
+    reader, writer = await asyncio.open_connection(GATEWAY_HOST, port)
+    try:
+        writer.write(f"{method} {path} HTTP/1.1\r\nHost: {GATEWAY_HOST}\r\n"
+                     f"Content-Length: 0\r\nConnection: close\r\n\r\n"
+                     .encode())
+        await writer.drain()
+        raw = await reader.read()
+    finally:
+        writer.close()
+        await writer.wait_closed()
+    head, _, body = raw.partition(b"\r\n\r\n")
+    return int(head.split(b" ", 2)[1]), head, body
+
+
+def _dechunk(payload: bytes) -> bytes:
+    """An HTTP/1.1 chunked body, decoded."""
+    out, rest = [], payload
+    while rest:
+        size_line, _, rest = rest.partition(b"\r\n")
+        size = int(size_line, 16)
+        if size == 0:
+            break
+        out.append(rest[:size])
+        rest = rest[size + 2:]
+    return b"".join(out)
+
+
+def phase_gateway(torch, card, seed: int, planned: dict) -> dict:
+    """The serving front door on the card: the port's ``AsyncGateway``
+    serves social_media live (``time_scale`` 1) behind its
+    ``GatewayHTTPServer`` on the loopback, on the plan phase's one-H100
+    plan and graph (SLO scaled by that phase's deadline scale) and its
+    ``EngineBackend(reduced=False)`` engines (full-width gemma-2b,
+    granite-3-2b and qwen2-7b in bf16), with an ``Instrumentation``
+    (tracer, SLO plane, audit log).  The port's load generator sends
+    Poisson traffic over HTTP (``open_loop`` + ``http_submitter``); then
+    one streamed submit, and ``/metrics``, ``/trace``, ``/alerts``,
+    ``/audit`` and ``/healthz`` are scraped.
+
+    It fails unless every submission resolves (ok + dropped + rejected ==
+    submitted, no errors) and at least one is ok; no root is left in the
+    gateway or in ``/healthz``; the scraped arrivals equal the admitted
+    submissions and ok <= completions <= ok + dropped; the trace is valid
+    and every root has as many queue and service spans as hop spans; the
+    stream ends in ``done`` and its hops name deployed variants only; and
+    each arch's launches are one flash launch per layer per service call
+    and one decode launch per layer per decode step.  The gateway calls
+    ``service_s`` inline, as the JAX package's does: the event loop is
+    blocked for each service, a hop then sleeps its service again, and a
+    server may take a batch while its last one still sleeps.  The phase
+    measures all three.  Returns the launches per arch and kernel."""
+    import asyncio
+    import dataclasses
+    from repro_torch.gateway import (AsyncGateway, GatewayHTTPServer,
+                                     http_submitter, open_loop)
+    from repro_torch.kernels import decode_attention as dmod
+    from repro_torch.kernels import flash_attention as fmod
+    from repro_torch.kernels import quant_matmul as qmod
+    from repro_torch.kernels import ssd_scan as smod
+    from repro_torch.obs import (AuditLog, Instrumentation, SloPlane,
+                                 Tracer, parse_exposition,
+                                 validate_chrome_trace)
+
+    t_phase = time.monotonic()
+    backend = planned["backend"]
+    graph, _, _ = _scaled_on(planned["graph"], planned["fitted"], 1,
+                             planned["slo_scale"])
+    cfg = dataclasses.replace(planned["cfg"], graph=graph)
+    deployed = sorted({(t.task, t.variant) for t, m in cfg.instances()
+                       if m > 0})
+    mods = {"flash_attention": fmod, "decode_attention": dmod,
+            "ssd_scan": smod, "quant_matmul": qmod}
+    counted = _PerArch(backend, mods)
+    hooks = Instrumentation(tracer=Tracer(), slo=SloPlane(), audit=AuditLog())
+    probe = _Dispatches(hooks, counted)
+    torch.cuda.reset_peak_memory_stats()
+
+    async def exchange():
+        gw = AsyncGateway({COMPOUND_APP: (graph, cfg)}, counted, seed=seed,
+                          time_scale=1.0, hooks=probe)
+        probe.watch(gw)
+        srv = GatewayHTTPServer(gw, hooks, GATEWAY_HOST, 0)
+        await srv.start()
+        out = {"gw": gw}
+        try:
+            port = srv.port
+            for mod in mods.values():
+                mod.launches = 0
+            t0 = time.monotonic()
+            out["report"] = (await open_loop(
+                http_submitter(f"http://{GATEWAY_HOST}:{port}"),
+                {COMPOUND_APP: GATEWAY_RPS}, duration_s=GATEWAY_S,
+                seed=seed)).to_dict()
+            out["run_wall_s"] = time.monotonic() - t0
+            out["roots_left"] = len(gw._roots)
+            out["metrics"] = (await _fetch(port, "GET", "/metrics"))[2]
+            out["stream"] = await _fetch(
+                port, "POST", f"/v1/{COMPOUND_APP}/submit?stream=1")
+            for path in ("/metrics", "/trace", "/alerts", "/audit",
+                         "/healthz"):
+                out[path] = await _fetch(port, "GET", path)
+        finally:
+            await srv.stop()
+        return out
+
+    async def bounded():
+        return await asyncio.wait_for(exchange(), GATEWAY_LIMIT_S)
+
+    got = asyncio.run(bounded())
+    gw, tot = got["gw"], got["report"]["total"]
+    totals = {k: mod.launches for k, mod in mods.items()}
+    fails = []
+
+    # 1. every submission resolves, and no root is left behind
+    health = json.loads(got["/healthz"][2])
+    if (tot["submitted"] <= 0 or tot["errors"] or tot["ok"] < 1
+            or tot["ok"] + tot["dropped"] + tot["rejected"]
+            != tot["submitted"]):
+        fails.append(f"resolution: {tot}")
+    if got["roots_left"] or gw._roots or health.get("inflight_roots"):
+        fails.append(f"roots left: {got['roots_left']} after the load, "
+                     f"{len(gw._roots)} at the end, /healthz {health}")
+
+    # 2. the counters scraped after the load against the load report
+    parsed = parse_exposition(got["metrics"].decode())
+    arrivals = _counts(parsed, "jigsaw_arrivals_total").get("", 0.0)
+    completions = _counts(parsed, "jigsaw_completions_total").get("", 0.0)
+    if (arrivals != tot["submitted"] - tot["rejected"]
+            or not tot["ok"] <= completions <= tot["ok"] + tot["dropped"]):
+        fails.append(f"counters: {arrivals} arrivals, {completions} "
+                     f"completions against {tot}")
+
+    # 3. the trace: valid, and a queue and a service span for every hop
+    status, _, body = got["/trace"]
+    events = validate_chrome_trace(json.loads(body)) if status == 200 else []
+    spans = {}
+    for s in hooks.tracer.spans:
+        per = spans.setdefault(s.root_id, {"hop": 0, "queue": 0,
+                                           "service": 0})
+        per[s.cat] = per.get(s.cat, 0) + 1
+    uneven = [r for r, n in spans.items()
+              if not n["hop"] == n["queue"] == n["service"]]
+    if status != 200 or not events or not spans or uneven:
+        fails.append(f"trace: status {status}, {len(events)} events, "
+                     f"roots with uneven spans {uneven}")
+
+    # 4. the streamed submit
+    status, head, body = got["stream"]
+    lines = ([json.loads(ln) for ln in _dechunk(body).strip().split(b"\n")]
+             if status == 200 else [])
+    hops = [(ln["task"], ln["variant"]) for ln in lines
+            if ln.get("event") == "hop"]
+    if (status != 200 or b"chunked" not in head.lower() or not lines
+            or lines[-1].get("event") != "done"
+            or any(h not in deployed for h in hops)):
+        fails.append(f"stream: status {status}, lines {lines}")
+
+    # 5. launches per arch, as in the compound phase
+    expect = {}
+    for arch_name, calls in counted.calls.items():
+        layers = backend._engines[arch_name].model.arch.num_layers
+        expect[arch_name] = {"flash_attention": layers * calls,
+                             "decode_attention":
+                                 layers * calls * (SERVE_NEW - 1),
+                             "ssd_scan": 0, "quant_matmul": 0}
+    if (not counted.calls or counted.launches != expect
+            or any(totals[k] != sum(c[k] for c in counted.launches.values())
+                   for k in mods)):
+        fails.append(f"launches {counted.launches} != {expect} "
+                     f"(totals {totals})")
+
+    # the inline service: loop blocked, service paid twice, double booking
+    done = [d for d in probe.dispatches if "done_s" in d]
+    if len(done) != len(probe.dispatches):
+        fails.append(f"{len(probe.dispatches) - len(done)} batches never "
+                     "ended their _serve")
+    blocked = [d["blocked_s"] for d in probe.dispatches]
+    ratio = [(d["done_s"] - d["start_s"]) / d["service_s"] for d in done
+             if d["service_s"] > 0]
+    audit = {}
+    for ln in got["/audit"][2].decode().splitlines():
+        kind = json.loads(ln)["kind"]
+        audit[kind] = audit.get(kind, 0) + 1
+    alerts = json.loads(got["/alerts"][2])
+    emit("gateway", card=card["nvidia_smi"], app=COMPOUND_APP,
+         plan_from="plan phase (repro_torch Planner, h100_cluster(1))",
+         deployed=deployed, slo_scale=planned["slo_scale"],
+         slo_ms=graph.slo_latency_ms, host=GATEWAY_HOST,
+         rate_rps=GATEWAY_RPS, duration_s=GATEWAY_S, seed=seed,
+         time_scale=gw.time_scale,
+         note="every planned instance is served on the whole card; int8 "
+              "variants run in bf16 (EngineBackend ignores Variant.quant, "
+              "as the reference's does); AsyncGateway calls service_s "
+              "inline and then sleeps the service, as the reference's "
+              "does; attainment has no limit yet",
+         load=got["report"], run_host_wall_s=got["run_wall_s"],
+         scraped={"arrivals": arrivals, "completions": completions,
+                  "drops": _counts(parsed, "jigsaw_drops_total", "reason"),
+                  "admission_rejects": _counts(
+                      parsed, "jigsaw_admission_rejects_total").get("", 0.0)},
+         health=health, alerts_firing=alerts.get("alerts"),
+         alert_rules=[r["name"] for r in alerts.get("rules", [])],
+         audit=audit, trace_events=len(events),
+         roots_traced=len(spans), stream=lines,
+         service_calls=counted.calls, launches=counted.launches,
+         expected_launches=expect,
+         loop_blocked_s={"sum": sum(blocked), "calls": len(blocked),
+                         "per_call": blocked},
+         done_over_service={
+             "mean": sum(ratio) / len(ratio) if ratio else None,
+             "min": min(ratio, default=None),
+             "max": max(ratio, default=None)},
+         launches_on_busy_server=sum(d["earlier_in_serve"] > 0
+                                     for d in probe.dispatches),
+         busy_until_overwritten=sum(d.get("overwrote", 0) for d in done),
+         dispatches=probe.dispatches,
+         phase_host_wall_s=time.monotonic() - t_phase,
+         max_memory_allocated_bytes=torch.cuda.max_memory_allocated(),
+         failures=fails)
+    if fails:
+        raise AssertionError("gateway: " + "; ".join(fails))
+    return counted.launches
+
+
 # ---------------------------------------------------------------------------
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -2293,6 +2594,7 @@ def main(argv=None) -> int:
     planned = phase_plan(torch, card, args.seed)
     compound_launches = phase_compound(torch, card, args.seed, planned)
     phase_control(torch, card, args.seed, planned)
+    phase_gateway(torch, card, args.seed, planned)
     for row in rows:
         if row["name"] == "quant_matmul":   # no serve run calls it
             row["launches"] = int8_launches[row["model"]][row["layout"]]
