@@ -69,7 +69,28 @@ Phases, each printing one JSON line; any failure exits non-zero:
               within 10 % of the error uniform int8 rounding predicts, and
               (all but the MLP down-projection, whose SwiGLU input is
               heavy-tailed) within 0.02 of the dense fp32 product.
-8. plan     -- the planning chain on the card: the port's H100_SXM preset
+8. moe      -- the MoE family at full width, its depth cut to fit the
+              card: llama4-scout at 8 of its 48 layers and llama4-maverick
+              at one group (a dense layer, then an MoE layer over 128
+              experts), random weights from a seeded generator, in bf16.
+              For each: a prefill of the serve batch's size (8 x 512)
+              with every flash call held against its plain version; then
+              the full-sequence logits and every MoE layer's routes
+              (experts and keeps) through the kernels and through the
+              plain versions, with each route flip's router-probability
+              margin; a primary flip (everything before it in its row
+              agreed in every earlier layer) must sit below ROUTE_MARGIN,
+              and the logits limit holds the tokens whose row agrees up to
+              them in every layer; a rounding-only control (the plain
+              attention in float64) and a wrong-kernel control (the first
+              attention not causal) printed beside.  Scout also runs 2
+              layers in fp32 as the model phase does.  Both serve the 8
+              requests through Batcher -> Engine (decoded eagerly) with
+              launches exact (scout 8 / 120, maverick 2 / 30) and each
+              MoE layer's drops at prefill (pads counted); scout's batch
+              is profiled with routing, dispatch, the experts, the shared
+              expert and attention annotated.  Peak memory per model.
+9. plan     -- the planning chain on the card: the port's H100_SXM preset
               against the card (132 SMs, the usable HBM, a pinned 1 GiB
               host-to-device copy beside the preset's staging bandwidth);
               full-batch prefills and decode steps of the compound engines
@@ -83,7 +104,7 @@ Phases, each printing one JSON line; any failure exits non-zero:
               (h100_cluster(1)), and fails if there is no plan or its
               MigSlicePacker does not pack it; the plan for four cards at
               40 rps is printed beside it.
-9. compound -- the main path through the port's own ClusterRuntime: the
+10. compound -- the main path through the port's own ClusterRuntime: the
               social_media app on the plan phase's plan, each instance
               served on the whole card by EngineBackend at full width in
               bf16 (planned int8 variants too), Poisson 4 rps for 10 s of
@@ -91,7 +112,7 @@ Phases, each printing one JSON line; any failure exits non-zero:
               scale; every root arrival ends completed or dropped, each
               arch's flash and decode launches are exact, and each served
               tuple's planned latency is printed beside its services.
-10. control -- the adaptive control loop on the same engines: the port's
+11. control -- the adaptive control loop on the same engines: the port's
               Controller steps social_media through 8 bins of 4 s of a
               diurnal trace (seed 2; its peak is 4 rps unless one card's
               plan only changes above that, then raised until the
@@ -105,7 +126,7 @@ Phases, each printing one JSON line; any failure exits non-zero:
               the lost unit reaches bin 5's planner, launches are exact
               per arch, and the hooks' counters, spans and audit events
               agree with the bins' SimMetrics.
-11. gateway -- the serving front door on the same engines: the port's
+12. gateway -- the serving front door on the same engines: the port's
               AsyncGateway serves social_media live behind its HTTP server
               on 127.0.0.1 (an ephemeral port), on the plan phase's plan
               with the SLO at that phase's scale and instrumentation
@@ -124,9 +145,9 @@ Phases, each printing one JSON line; any failure exits non-zero:
 The second-to-last line is ``{"kernels": [...]}``, one row per kernel at
 its main serving shape (four for quant_matmul: prefill and decode, each
 on both layouts of w_q; the
-attention kernels also at gemma-2b's and granite-3-2b's compound shapes),
-``launches`` from the serve run of the model whose shape the row names
-(``launches_by_model`` gives all three), from the compound phase for
+attention kernels also at gemma-2b's and granite-3-2b's compound shapes
+and at llama4-scout's), ``launches`` from the serve run of the model whose
+shape the row names (``launches_by_model`` gives all five), from the compound phase for
 gemma-2b and granite-3-2b (0 where the plan serves that arch no call), or
 for quant_matmul from the int8 phase at that shape; the last is
 ``{"ok": true, "device": {...}}``.  Exits 2 with no result when
@@ -156,6 +177,7 @@ TOLS = {"float32": 2e-5, "bfloat16": 2e-2}   # tests/test_kernels.py:14-15
 
 QWEN, ZAMBA, MAMBA = "qwen2-7b", "zamba2-7b", "mamba2-130m"
 GEMMA, GRANITE = "gemma-2b", "granite-3-2b"     # the compound phase's others
+SCOUT, MAVERICK = "llama4-scout-17b-a16e", "llama4-maverick-400b-a17b"
 SERVE_BATCH, SERVE_MAX_SEQ, SERVE_NEW = 8, 1024, 16
 PROMPT_LENS = (256, 512)
 SSD_TOL = 2e-3                               # tests/test_kernels.py:74-77
@@ -728,6 +750,9 @@ def phase_kernels(torch, card) -> list:
     rows.append(decode_at(GEMMA, B, 8, 1, 256, 528))
     rows.append(flash_at(GRANITE, B, 512, 32, 8, 64))
     rows.append(decode_at(GRANITE, B, 32, 8, 64, 528))
+    # the MoE phase's llama4-scout (40 query / 8 KV heads, G 5, hd 128)
+    rows.append(flash_at(SCOUT, B, 512, 40, 8, 128))
+    rows.append(decode_at(SCOUT, B, 40, 8, 128, 528))
     extra.append(ssd_at(MAMBA, B, 474, 24, 64, 128, 128))
     emit("kernels_serving_shapes", card=card["nvidia_smi"], rows=rows,
          also=extra, ok=oks)
@@ -916,7 +941,6 @@ def phase_model(torch, card, name: str, small_layers: int):
     changed (the SSD's chunk halved) stays below the limit (in bf16 the
     Mamba2 stack decorrelates them)."""
     import numpy as np
-    from repro_torch.serving.engine import Engine, EngineConfig
 
     model = _model(torch, name)
     arch = model.arch
@@ -973,9 +997,22 @@ def phase_model(torch, card, name: str, small_layers: int):
             or (logits_decide and rel >= LOGITS_TOL)):
         raise AssertionError(f"{arch.name} prefill: rel err {rel}, finite "
                              f"{finite}, {calls_wrong}")
+    _greedy_fp32(torch, card, name, small_layers, rng)
+    return model
+
+
+def _greedy_fp32(torch, card, name: str, small_layers: int, rng) -> None:
+    """At full width but ``small_layers`` layers in fp32: greedy generation
+    through the kernels and through the plain versions, then teacher-forced
+    logits of both paths and of the plain path in float64; the kernel path
+    within max(FP32_LOGITS_TOL, 2 x the plain path's distance) of float64,
+    and every kernel call within tolerance of its plain version."""
+    import numpy as np
+    from repro_torch.serving.engine import Engine, EngineConfig
 
     small = _model(torch, name, num_layers=small_layers, dtype=torch.float32,
                    seed=2)
+    arch = small.arch
     prompts = rng.integers(0, arch.vocab_size,
                            size=(SERVE_BATCH, 300)).astype(np.int32)
     outs = {}
@@ -1036,7 +1073,6 @@ def phase_model(torch, card, name: str, small_layers: int):
                              f"{calls_wrong}")
     del small
     torch.cuda.empty_cache()
-    return model
 
 
 def _serve_prompts(seed: int, vocab: int) -> list:
@@ -1114,12 +1150,37 @@ def phase_serve(torch, card, model, seed: int) -> dict:
     return counts, eng, int(lens.max())
 
 
-def phase_profile(torch, card, eng, S: int) -> None:
+@contextlib.contextmanager
+def _annotated(torch, regions: dict):
+    """Within the block, each function ``regions`` names (``(module,
+    attribute)`` -> label) runs inside ``torch.profiler.record_function``
+    of its label."""
+    saved = {key: getattr(*key) for key in regions}
+
+    def wrap(label, fn):
+        def call(*args, **kw):
+            with torch.profiler.record_function(label):
+                return fn(*args, **kw)
+        return call
+
+    for (mod, attr), label in regions.items():
+        setattr(mod, attr, wrap(label, saved[mod, attr]))
+    try:
+        yield
+    finally:
+        for (mod, attr), fn in saved.items():
+            setattr(mod, attr, fn)
+
+
+def phase_profile(torch, card, eng, S: int, regions=None) -> None:
     """Where a serve batch's time goes, at the serve phase's padded shape:
     the engine's prefill and each decode step (graphed on a dense model)
     on the host clock (synchronised),
     then the same prefill and steps again under torch.profiler, device
-    time summed over kernels only (not over the ops that launch them)."""
+    time summed over kernels only (not over the ops that launch them).
+    With ``regions`` (``(module, attribute)`` -> label) the profiled runs
+    also annotate those functions, and each label's device time (its
+    kernels and its callees') is printed."""
     import numpy as np
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1149,9 +1210,11 @@ def phase_profile(torch, card, eng, S: int) -> None:
         torch.cuda.synchronize()
         steps.append(time.monotonic() - t0)
 
+    labels = set((regions or {}).values())
+
     def kernels(prof):
         evs = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA]
+               if e.device_type == DeviceType.CUDA and e.key not in labels]
         busy = sum(e.self_device_time_total for e in evs) / 1e3
         ranked = sorted(evs, key=lambda e: e.self_device_time_total,
                         reverse=True)
@@ -1167,17 +1230,31 @@ def phase_profile(torch, card, eng, S: int) -> None:
                       for e in ranked[:8] + [e for e in ours
                                              if e not in ranked[:8]]]
 
+    def by_region(prof):
+        return {e.key: {"calls": e.count, "device_ms":
+                        e.device_time_total / 1e3}
+                for e in prof.key_averages()
+                if e.key in labels and e.device_type == DeviceType.CPU}
+
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
-    with profile(activities=acts) as p_prefill:
+    def annotated():
+        return (_annotated(torch, regions) if regions
+                else contextlib.nullcontext())
+
+    with annotated(), profile(activities=acts) as p_prefill:
         tok, cache = prefill()
         torch.cuda.synchronize()
-    with profile(activities=acts) as p_decode:
+    with annotated(), profile(activities=acts) as p_decode:
         for i in range(SERVE_NEW - 1):
             tok = decode(tok, cache, i)
         torch.cuda.synchronize()
     busy_p, top_p = kernels(p_prefill)
     busy_d, top_d = kernels(p_decode)
     decode_s = sum(steps)
+    if regions:
+        emit("profile_regions", card=card["nvidia_smi"],
+             arch=model.arch.name, prefill=by_region(p_prefill),
+             decode=by_region(p_decode))
     emit("profile", card=card["nvidia_smi"], arch=model.arch.name,
          padded_prompt_len=S,
          prefill_s=prefill_s, decode_step_s=steps, decode_total_s=decode_s,
@@ -1186,6 +1263,241 @@ def phase_profile(torch, card, eng, S: int) -> None:
          decode_device_busy_ms=busy_d,
          decode_idle_share=1.0 - busy_d / 1e3 / decode_s,
          prefill_kernels=top_p, decode_kernels=top_d)
+
+
+# ---------------------------------------------------------------------------
+# Full width, depth cut to fit one 80 GB card in bf16 (the whole models
+# hold 215.5 and 795.4 GB): scout 8 of its 48 layers (39.37 GB of
+# weights), maverick one group of moe_every = 2, a dense layer then an MoE
+# layer over 128 experts (37.11 GB).
+MOE_LAYERS = {SCOUT: 8, MAVERICK: 2}
+MOE_FP32_LAYERS = 2
+# A *flip* is a token whose experts differ between the kernel and the plain
+# path in one layer; it is *primary* where every token up to it in its row
+# agreed in every earlier layer, so that only rounding of its own layer's
+# input can have moved it.  A flip needs the paths' difference in the two
+# experts' probabilities to exceed the plain path's margin between them,
+# so a perturbation of at most dp moves only tokens of margin <= 2 dp.  The
+# phase prints dp over the tokens whose context agrees
+# (``prob_diff_agreeing``); with only rounding changed (the control with
+# the plain attention in float64) it reads 7.4e-3 at scout on an H100
+# (PERF.md), so a primary flip is admissible only at a margin below
+# ROUTE_MARGIN = 2e-2.  The wrong-kernel control (the first attention not
+# causal) flips thousands of tokens at margins far above it.  The logits
+# limit then holds every token whose row agrees up to it in every layer
+# (with grouped dispatch a token's routes, ranks and logits depend on no
+# later token); the tokens after a row's first difference are counted,
+# and their error printed, not held.
+ROUTE_MARGIN = 2e-2
+
+
+def _max_or(t, empty):
+    """max(t) as a float, or ``empty`` when t has no element."""
+    return float(t.max()) if t.numel() else empty
+
+
+@contextlib.contextmanager
+def _routes_logged(log: list):
+    """Within the block, every MoE layer appends its ``moe.Routes`` to
+    ``log``."""
+    from repro_torch.models import moe
+    mlp = moe.moe_mlp
+    moe.moe_mlp = lambda h, blk, arch, dispatch: mlp(h, blk, arch, dispatch,
+                                                     log)
+    try:
+        yield
+    finally:
+        moe.moe_mlp = mlp
+
+
+def _route_diff(torch, got: list, want: list, B: int) -> dict:
+    """The routes of one prefill of B rows on two paths (``moe.Routes``,
+    one per MoE layer; ``want`` the plain path) compared: the flips of
+    each layer with the plain path's margin, which are primary (see
+    ROUTE_MARGIN), the keeps that differ, the largest router-probability
+    difference over tokens whose context agrees, and ``agree`` [B, S]:
+    the tokens whose row agrees up to them in every layer."""
+    K = want[0].idx.shape[-1]
+    S = want[0].idx.numel() // (B * K)
+    dev = want[0].idx.device
+    pos = torch.arange(S, device=dev)
+    first = torch.full((B,), S, device=dev)  # first differing position
+    layers, prob_diff = [], 0.0
+    for a, b in zip(got, want):
+        ia, ib = a.idx.reshape(B, S, K), b.idx.reshape(B, S, K)
+        ka, kb = a.keep.reshape(B, S, K), b.keep.reshape(B, S, K)
+        pa, pb = a.probs.reshape(B, S, -1), b.probs.reshape(B, S, -1)
+        top = pb.topk(K + 1, dim=-1).values
+        margin = top[..., K - 1] - top[..., K]
+        context = pos[None] < first[:, None]
+        prob_diff = max(prob_diff, _max_or(
+            (pa - pb).abs().amax(-1)[context], 0.0))
+        flip = (ia != ib).any(-1)
+        primary = flip & context
+        layers.append({
+            "flips": int(flip.sum()), "primary": int(primary.sum()),
+            "primary_flips": [
+                {"row": r, "token": t, "margin": float(margin[r, t])}
+                for r, t in primary.nonzero().tolist()],
+            "other_flip_margins": margin[flip & ~context].tolist(),
+            "keeps_differ": int((ka != kb).any(-1).sum())})
+        differ = flip | (ka != kb).any(-1)
+        first = torch.minimum(first, torch.where(
+            differ.any(1), differ.int().argmax(1), S))
+    margins = [f["margin"] for lay in layers for f in lay["primary_flips"]]
+    return {"layers": layers, "flips": sum(x["flips"] for x in layers),
+            "primary_flips": len(margins),
+            "primary_margin_max": max(margins, default=0.0),
+            "prob_diff_agreeing": prob_diff,
+            "agree": pos[None] < first[:, None]}
+
+
+def _moe_prefill_check(torch, card, model) -> None:
+    """An MoE model at full width in bf16: a prefill of SERVE_BATCH x 512
+    through the kernels with every flash call held against its plain
+    version; then the full-sequence logits and every MoE layer's routes on
+    both paths, the flips counted with their margins (ROUTE_MARGIN) and
+    the logits held at LOGITS_TOL over the tokens whose rows agree; the
+    same readings for a rounding-only and a wrong-kernel control."""
+    import numpy as np
+    from repro_torch.configs import get_arch
+    arch = model.arch
+    tokens = torch.as_tensor(np.random.default_rng(1).integers(
+        0, arch.vocab_size, size=(SERVE_BATCH, 512)), device=model.device)
+    per_call = {}
+    with _each_call_checked(torch, per_call):
+        model.prefill(tokens)
+    calls_wrong = _calls_in_tolerance(arch, per_call, prefills=1, steps=0)
+
+    def forward(impl, log):
+        model.impl = impl
+        with _routes_logged(log):
+            return model.forward(tokens)
+
+    routes = {"kernel": [], "plain": []}
+    got = forward("kernel", routes["kernel"])
+    want = forward("plain", routes["plain"])
+    scale = float(want.abs().max())
+
+    def reading(logits, log):
+        diff = _route_diff(torch, log, routes["plain"], SERVE_BATCH)
+        agree = diff.pop("agree")
+        err = (logits - want).abs().amax(-1) / scale          # [B, S]
+        diff.update(
+            agreeing_tokens=int(agree.sum()),
+            rel_err_agreeing=_max_or(err[agree], None),
+            rel_err_others=_max_or(err[~agree], None),
+            top1_agreement=float((logits.argmax(-1) == want.argmax(-1))
+                                 .float().mean()))
+        diff["rule_holds"] = (diff["primary_margin_max"] < ROUTE_MARGIN
+                              and diff["rel_err_agreeing"] is not None
+                              and diff["rel_err_agreeing"] < LOGITS_TOL)
+        return diff
+
+    kernel = reading(got, routes["kernel"])
+    finite = bool(torch.isfinite(got).all())
+    del got
+    controls = {}
+    for label, attr, wrong in (
+            ("attention_in_float64", None, None),
+            ("first_attention_not_causal", "flash_attention_ref",
+             lambda a, kw: (a, {**kw, "causal": False}))):
+        log = []
+        with (_plain_in_float64(torch) if attr is None
+              else _plain_altered(attr, wrong)):
+            logits = forward("plain", log)
+        controls[label] = reading(logits, log)
+        del logits
+    model.impl = "kernel"
+    emit("moe_prefill", card=card["nvidia_smi"], arch=arch.name,
+         layers=arch.num_layers, cut=f"{arch.num_layers} of "
+         f"{get_arch(arch.name).num_layers} layers",
+         params=sum(p.numel() for p in model.parameters()),
+         route_margin=ROUTE_MARGIN, logits_tol=LOGITS_TOL, finite=finite,
+         kernel_vs_plain=kernel, controls=controls,
+         per_call_calls_maxerr_bad={k: list(v) for k, v in per_call.items()})
+    if calls_wrong or not finite or not kernel["rule_holds"]:
+        raise AssertionError(
+            f"{arch.name} prefill: primary flip margin "
+            f"{kernel['primary_margin_max']} (limit {ROUTE_MARGIN}), rel "
+            f"err over agreeing tokens {kernel['rel_err_agreeing']} (limit "
+            f"{LOGITS_TOL}), finite {finite}, {calls_wrong}")
+
+
+def _serve_drops(torch, model, log: list, seed: int, S: int) -> dict:
+    """Each MoE layer's drops in the serve run's prefill (the entries of
+    ``log`` before its SERVE_NEW - 1 decode steps): the share of all
+    (token, k) rows, of the left pads' and of the prompts' own, and the
+    share of a row's rows that its busiest expert drew (mean over rows),
+    with the capacity per row; and the decode steps' drops."""
+    from repro_torch.models.moe import capacity
+    m = model.arch.moe
+    n_moe = model.moe_group[0]
+    steps = (SERVE_NEW - 1) * n_moe
+    prefill, decode = log[-steps - n_moe:-steps], log[-steps:]
+    lens = torch.tensor([len(p) for p in _serve_prompts(
+        seed, model.arch.vocab_size)], device=model.device)
+    pad = torch.arange(S, device=model.device)[None] < (S - lens)[:, None]
+    pad = pad.repeat_interleave(m.experts_per_token, dim=1)
+    layers = []
+    for r in prefill:
+        drop = ~r.keep.reshape(SERVE_BATCH, -1)
+        load = torch.zeros(SERVE_BATCH, m.num_experts, device=model.device)
+        load.scatter_add_(1, r.idx.reshape(SERVE_BATCH, -1),
+                          torch.ones_like(load[:, :1]).expand(
+                              -1, S * m.experts_per_token))
+        layers.append({"share": float(drop.float().mean()),
+                       "pads": float(drop[pad].float().mean()),
+                       "prompts": float(drop[~pad].float().mean()),
+                       "busiest_expert_share": float(
+                           load.amax(1).mean() / (S * m.experts_per_token))})
+    return {"capacity_per_row": capacity(model.arch, S),
+                "pad_share": float(pad.float().mean()), "prefill_layers": layers,
+            "decode_drops": sum(int((~r.keep).sum()) for r in decode)}
+
+
+def phase_moe(torch, card, seed: int) -> dict:
+    """The MoE family on the card: scout in fp32 at MOE_FP32_LAYERS layers
+    (greedy and teacher-forced, as the model phase); scout at
+    MOE_LAYERS[SCOUT] layers in bf16 (prefill check, served through
+    Batcher -> Engine with launches exact and each MoE layer's drops,
+    profiled with its MoE regions annotated); maverick at one group (the
+    prefill check, served).  Returns each model's serve launches."""
+    from repro_torch.models import moe
+    from repro_torch.models import transformer as tfm
+    import numpy as np
+
+    t0 = time.monotonic()
+    torch.cuda.reset_peak_memory_stats()
+    _greedy_fp32(torch, card, SCOUT, MOE_FP32_LAYERS,
+                 np.random.default_rng(1))
+    peaks = {f"{SCOUT} fp32 x {MOE_FP32_LAYERS}":
+             torch.cuda.max_memory_allocated()}
+    regions = {(moe, "_route"): "moe.route",
+               (moe, "_dispatch_grouped"): "moe.dispatch",
+               (moe, "_expert_ffn"): "moe.experts",
+               (moe, "_shared_expert"): "moe.shared",
+               (tfm, "attention_full"): "attention",
+               (tfm, "attention_decode"): "attention"}
+    launches = {}
+    for name in (SCOUT, MAVERICK):
+        torch.cuda.reset_peak_memory_stats()
+        model = _model(torch, name, num_layers=MOE_LAYERS[name])
+        _moe_prefill_check(torch, card, model)
+        log = []
+        with _routes_logged(log):
+            launches[name], eng, S = phase_serve(torch, card, model, seed)
+        emit("moe_serve_drops", card=card["nvidia_smi"], arch=name,
+             padded_prompt_len=S, **_serve_drops(torch, model, log, seed, S))
+        del log
+        if name == SCOUT:
+            phase_profile(torch, card, eng, S, regions)
+        peaks[name] = torch.cuda.max_memory_allocated()
+        del model, eng
+        torch.cuda.empty_cache()
+    emit("moe", card=card["nvidia_smi"], seconds=time.monotonic() - t0,
+         max_memory_allocated_bytes=peaks, launches=launches)
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -2591,6 +2903,7 @@ def main(argv=None) -> int:
             int8_launches = phase_int8(torch, card, model, args.seed)
         del model, eng
         torch.cuda.empty_cache()
+    launches.update(phase_moe(torch, card, args.seed))
     planned = phase_plan(torch, card, args.seed)
     compound_launches = phase_compound(torch, card, args.seed, planned)
     phase_control(torch, card, args.seed, planned)

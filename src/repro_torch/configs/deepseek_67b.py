@@ -1,0 +1,17 @@
+"""DeepSeek-67B dense LM (llama-arch). [arXiv:2401.02954; hf]"""
+from repro_torch.configs.base import ArchConfig
+
+CONFIG = ArchConfig(
+    name="deepseek-67b",
+    family="dense",
+    num_layers=95,
+    d_model=8192,
+    num_heads=64,
+    num_kv_heads=8,   # GQA
+    head_dim=128,
+    d_ff=22016,
+    vocab_size=102400,
+    mlp_activation="silu",
+    rope_theta=10_000.0,
+    source="arXiv:2401.02954; hf:deepseek-ai/deepseek-llm-67b-base",
+)

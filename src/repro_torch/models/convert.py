@@ -5,11 +5,15 @@ port against the JAX package initialise once in JAX and convert.  The JAX
 block weights are stacked ``[L, ...]``; each layer's slice keeps its layout
 (``wq [d, H, hd]``, ``wo [H, hd, d]``, ``wz [d, nh, hd]``, ...) under
 ``blocks.<i>.<name>``.  A hybrid's shared attention block, stacked
-``[1, ...]``, goes to ``shared_attn.<name>``.  Dtypes are kept: the SSM's
+``[1, ...]``, goes to ``shared_attn.<name>``.  An MoE model's blocks are
+stacked per group of ``moe_every`` layers: ``blocks/moe/<name>``
+``[n_groups, ...]`` is each group's last layer, ``blocks/dense/<name>``
+``[n_groups, moe_every - 1, ...]`` its dense layers before it.  Dtypes are kept: the SSM's
 ``A_log`` and ``dt_bias`` are fp32 in every model.
 """
 from __future__ import annotations
 
+import itertools
 from typing import Any, Dict, Mapping
 
 import numpy as np
@@ -42,13 +46,24 @@ def from_jax_params(arch: ArchConfig,
     """``repro.models.Model.init`` params (arrays or numpy arrays) ->
     ``repro_torch.models.Model`` state dict, on the CPU."""
     if arch.family not in FAMILIES:
-        raise NotImplementedError(f"{arch.name}: family {arch.family!r} has "
-                                  f"no port yet")
+        raise ValueError(f"{arch.name}: unknown family {arch.family!r}")
     out = {"embed": _tensor(params["embed"]),
            "final_norm": _tensor(params["final_norm"])}
     if not arch.tie_embeddings:
         out["lm_head"] = _tensor(params["lm_head"])
-    _unstack("blocks", params["blocks"], arch.num_layers, out)
+    if arch.family == "moe":
+        per = arch.moe.moe_every
+        n_groups = arch.num_layers // per
+        for name, w in params["blocks"]["moe"].items():
+            w = _tensor(w)
+            for g in range(n_groups):
+                out[f"blocks.{g * per + per - 1}.{name}"] = w[g]
+        for name, w in params["blocks"].get("dense", {}).items():
+            w = _tensor(w)
+            for g, j in itertools.product(range(n_groups), range(per - 1)):
+                out[f"blocks.{g * per + j}.{name}"] = w[g, j]
+    else:
+        _unstack("blocks", params["blocks"], arch.num_layers, out)
     if arch.family == "hybrid":
         _unstack("shared_attn", params["shared_attn"], 1, out, index=False)
     return out

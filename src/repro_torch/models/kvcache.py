@@ -4,7 +4,8 @@ A cache is a dict of per-layer lists, the JAX package's layout per layer
 (it stacks them ``[L, ...]`` for its layer scan; a Python loop over layers
 has no use for the stack):
 
-* dense / vlm / audio : ``{"k": [L x [B,S,KV,hd]], "v": [...]}``
+* dense / moe / vlm / audio : ``{"k": [L x [B,S,KV,hd]], "v": [...]}``
+  (every layer of an MoE model attends, its MoE layers too)
 * ssm                 : ``{"ssm": [L x SSMLayerState]}``
 * hybrid              : ``{"k": [G x [B,S,KV,hd]], "v": [...],
   "ssm": [L x SSMLayerState]}`` with G the number of shared-attention

@@ -1,5 +1,5 @@
 """The port's model: the dense-family decoders (dense, vlm, audio), the
-Mamba2 SSM family and the Zamba2 hybrid family.
+MoE family, the Mamba2 SSM family and the Zamba2 hybrid family.
 
 PyTorch counterpart of ``repro.models.Model`` with the same entry points,
 holding its parameters as an ``nn.Module``:
@@ -12,8 +12,10 @@ holding its parameters as an ``nn.Module``:
 Modality frontends (vlm/audio) are stubs, as in the reference: the first P
 positions take precomputed embeddings.  A hybrid runs one shared attention
 block (``shared_attn``) before each group of ``attn_every`` Mamba2 layers,
-with one KV cache per application.  The MoE family and the training loss
-are later slices of the port.
+with one KV cache per application.  An MoE model runs groups of
+``moe_every`` layers: ``moe_every - 1`` dense layers, then one MoE layer
+(``models.moe``), each with its own KV cache.  The training loss is a
+later slice of the port.
 """
 from __future__ import annotations
 
@@ -24,14 +26,14 @@ from torch import nn
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import kvcache, layers
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models import transformer as tfm
 
 NUM_FRONTEND_POSITIONS = 64
 DENSE_FAMILIES = ("dense", "vlm", "audio")
-FAMILIES = DENSE_FAMILIES + ("ssm", "hybrid")
+FAMILIES = DENSE_FAMILIES + ("moe", "ssm", "hybrid")
 IMPLS = ("kernel", "plain")
-_LATER = {"moe": "ROADMAP queue 1 (models/moe.py)"}
 
 
 def resolve_device(device: Union[str, torch.device]) -> torch.device:
@@ -45,7 +47,7 @@ def resolve_device(device: Union[str, torch.device]) -> torch.device:
 
 
 class Model(nn.Module):
-    """A dense-family, SSM or hybrid decoder on one device.
+    """A dense-family, MoE, SSM or hybrid decoder on one device.
 
     ``device`` defaults to ``"cuda"`` and raises when no card is present;
     ``"meta"`` builds the shapes without allocating.  Parameters are made
@@ -53,23 +55,26 @@ class Model(nn.Module):
     ``load_state_dict`` (e.g. from ``convert.from_jax_params``).
     ``impl`` routes every kernel of the model (attention and SSD) through
     ``kernels.ops`` (``"kernel"``) or to the plain versions directly
-    (``"plain"``)."""
+    (``"plain"``).  ``moe_dispatch`` is the MoE layers' dispatch
+    (``models.moe.DISPATCHES``)."""
 
     def __init__(self, arch: ArchConfig,
                  device: Union[str, torch.device] = "cuda",
                  dtype: torch.dtype = torch.bfloat16,
-                 impl: str = "kernel"):
+                 impl: str = "kernel", moe_dispatch: str = "auto"):
         super().__init__()
         if arch.family not in FAMILIES:
-            raise NotImplementedError(
-                f"{arch.name}: family {arch.family!r} is not ported yet: "
-                f"{_LATER.get(arch.family, 'unknown family')}")
+            raise ValueError(f"{arch.name}: unknown family {arch.family!r}")
         if impl not in IMPLS:
             raise ValueError(f"impl {impl!r} not in {IMPLS}")
+        if moe_dispatch not in moe_mod.DISPATCHES:
+            raise ValueError(f"moe_dispatch {moe_dispatch!r} not in "
+                             f"{moe_mod.DISPATCHES}")
         self.arch = arch
         self.device = resolve_device(device)
         self.dtype = dtype
         self.impl = impl
+        self.moe_dispatch = moe_dispatch
         d, V = arch.d_model, arch.vocab_size
 
         def param(*shape):
@@ -80,11 +85,27 @@ class Model(nn.Module):
         self.final_norm = param(d)
         if not arch.tie_embeddings:
             self.lm_head = param(d, V)
-        block = ssm_mod.SSMBlock if arch.ssm is not None else tfm.DenseBlock
         self.blocks = nn.ModuleList(block(arch, self.device, dtype)
-                                    for _ in range(arch.num_layers))
+                                    for block in self._layer_kinds())
         if arch.family == "hybrid":
             self.shared_attn = tfm.DenseBlock(arch, self.device, dtype)
+
+    def _layer_kinds(self) -> list:
+        """The block class of each layer, in layer order."""
+        arch = self.arch
+        if arch.family == "moe":
+            n_groups, dense_per = self.moe_group
+            return ([tfm.DenseBlock] * dense_per + [moe_mod.MoEBlock]) \
+                * n_groups
+        block = ssm_mod.SSMBlock if arch.ssm is not None else tfm.DenseBlock
+        return [block] * arch.num_layers
+
+    @property
+    def moe_group(self) -> Tuple[int, int]:
+        """(n_groups, dense_per_group) of an MoE arch: each group is
+        ``dense_per_group`` dense layers, then one MoE layer."""
+        m = self.arch.moe
+        return self.arch.num_layers // m.moe_every, m.moe_every - 1
 
     @property
     def hybrid_groups(self) -> List[Tuple[int, int]]:
@@ -99,8 +120,10 @@ class Model(nn.Module):
         """Random weights with the reference's scales: normals drawn in fp32
         from ``generator`` (on its own device) and cast; norms and biases
         zero; the SSM's ``A_log``, ``D`` and ``dt_bias`` as the reference
-        sets them.  ``torch.Generator`` does not reproduce ``jax.random``:
-        for parity with the JAX package, load converted weights instead."""
+        sets them.  An expert weight is drawn one expert at a time, so no
+        fp32 temporary holds all E experts.  ``torch.Generator`` does not
+        reproduce ``jax.random``: for parity with the JAX package, load
+        converted weights instead."""
         arch = self.arch
 
         def normal(param: nn.Parameter, scale: float) -> None:
@@ -115,10 +138,17 @@ class Model(nn.Module):
         normal(self.final_norm, 0.0)
         if not arch.tie_embeddings:
             normal(self.lm_head, arch.d_model ** -0.5)
-        scale = ssm_mod.init_scale if arch.ssm is not None else tfm.init_scale
+        scales = {tfm.DenseBlock: tfm.init_scale,
+                  moe_mod.MoEBlock: moe_mod.init_scale,
+                  ssm_mod.SSMBlock: ssm_mod.init_scale}
         for blk in self.blocks:
+            scale = scales[type(blk)]
             for name, param in blk.named_parameters():
-                normal(param, scale(arch, name))
+                if name in moe_mod.EXPERT_WEIGHTS:
+                    for expert in param:
+                        normal(expert, scale(arch, name))
+                else:
+                    normal(param, scale(arch, name))
             if arch.ssm is not None:
                 blk.init_constants()
         if arch.family == "hybrid":
@@ -165,8 +195,12 @@ class Model(nn.Module):
             cache["ssm"] = []
 
         def attend(h, blk, i):
-            h, (k, v) = tfm.dense_block_full(h, blk, arch, positions,
-                                             self.impl)
+            if isinstance(blk, moe_mod.MoEBlock):
+                h, (k, v) = moe_mod.moe_block_full(
+                    h, blk, arch, positions, self.impl, self.moe_dispatch)
+            else:
+                h, (k, v) = tfm.dense_block_full(h, blk, arch, positions,
+                                                 self.impl)
             if kv_seq is not None:
                 cache["k"][i][:, :S] = k
                 cache["v"][i][:, :S] = v
@@ -229,6 +263,10 @@ class Model(nn.Module):
         h = layers.embed(tokens, self.embed).to(self.dtype)
 
         def attend(h, blk, i):
+            if isinstance(blk, moe_mod.MoEBlock):
+                return moe_mod.moe_block_decode(
+                    h, blk, arch, cache["k"][i], cache["v"][i], cache_len,
+                    self.impl, self.moe_dispatch)
             return tfm.dense_block_decode(h, blk, arch, cache["k"][i],
                                           cache["v"][i], cache_len,
                                           self.impl)

@@ -19,17 +19,24 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels import ops, ref
 from repro_torch.models import layers
 
-def block_shapes(arch: ArchConfig) -> Dict[str, Tuple[int, ...]]:
-    """Parameter shapes of one dense layer (``transformer.py`` init_attn and
-    init_mlp without the leading layer dim)."""
-    d, H, KV, hd, f = (arch.d_model, arch.num_heads, arch.num_kv_heads,
-                       arch.head_dim, arch.d_ff)
+def attn_shapes(arch: ArchConfig) -> Dict[str, Tuple[int, ...]]:
+    """Parameter shapes of one layer's attention (``transformer.py``
+    init_attn without the leading layer dim)."""
+    d, H, KV, hd = (arch.d_model, arch.num_heads, arch.num_kv_heads,
+                    arch.head_dim)
     shapes = {"attn_norm": (d,), "wq": (d, H, hd), "wk": (d, KV, hd),
               "wv": (d, KV, hd), "wo": (H, hd, d)}
     if arch.qkv_bias:
         shapes.update(bq=(H, hd), bk=(KV, hd), bv=(KV, hd))
-    shapes.update(mlp_norm=(d,), wg=(d, f), wu=(d, f), wd=(f, d))
     return shapes
+
+
+def block_shapes(arch: ArchConfig) -> Dict[str, Tuple[int, ...]]:
+    """Parameter shapes of one dense layer (``transformer.py`` init_attn and
+    init_mlp without the leading layer dim)."""
+    d, f = arch.d_model, arch.d_ff
+    return {**attn_shapes(arch), "mlp_norm": (d,), "wg": (d, f),
+            "wu": (d, f), "wd": (f, d)}
 
 
 def init_scale(arch: ArchConfig, name: str) -> float:
@@ -40,16 +47,22 @@ def init_scale(arch: ArchConfig, name: str) -> float:
             "wg": d ** -0.5, "wu": d ** -0.5, "wd": f ** -0.5}.get(name, 0.0)
 
 
+def register_empty(module: nn.Module, shapes: Dict[str, Tuple[int, ...]],
+                   device: torch.device, dtype: torch.dtype) -> None:
+    """One uninitialised, frozen parameter per entry of ``shapes``."""
+    for name, shape in shapes.items():
+        module.register_parameter(name, nn.Parameter(
+            torch.empty(shape, device=device, dtype=dtype),
+            requires_grad=False))
+
+
 class DenseBlock(nn.Module):
     """One dense layer's parameters (attention + gated MLP)."""
 
     def __init__(self, arch: ArchConfig, device: torch.device,
                  dtype: torch.dtype):
         super().__init__()
-        for name, shape in block_shapes(arch).items():
-            self.register_parameter(name, nn.Parameter(
-                torch.empty(shape, device=device, dtype=dtype),
-                requires_grad=False))
+        register_empty(self, block_shapes(arch), device, dtype)
 
 
 def _project_qkv(h: torch.Tensor, p: DenseBlock, arch: ArchConfig):

@@ -18,7 +18,7 @@ from repro.models import Model as JaxModel  # noqa: E402
 from repro.models import layers as jl  # noqa: E402
 from repro.models.kvcache import cache_bytes as jax_cache_bytes  # noqa: E402
 from repro.sharding.policy import ShardingPolicy  # noqa: E402
-from repro_torch.configs import ARCHS, ArchConfig, MoEConfig, get_arch  # noqa: E402
+from repro_torch.configs import ARCHS, ArchConfig, get_arch  # noqa: E402
 from repro_torch.models import Model  # noqa: E402
 from repro_torch.models import layers as tl  # noqa: E402
 from repro_torch.models.convert import from_jax_params  # noqa: E402
@@ -180,12 +180,14 @@ def test_full_width_qwen2_on_meta_device():
 
 
 def test_model_refuses_unported_families_and_missing_card():
-    moe = ArchConfig(name="moe-x", family="moe", num_layers=2, d_model=64,
-                     num_heads=4, num_kv_heads=2, d_ff=128, vocab_size=512,
-                     moe=MoEConfig(num_experts=4, experts_per_token=1,
-                                   d_ff_expert=128))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Model(moe, device="cpu")
+    """A family that neither package has is refused (the reference at init),
+    as are an unknown ``impl`` and a missing card."""
+    rnn = ArchConfig(name="rnn-x", family="rnn", num_layers=2, d_model=64,
+                     num_heads=4, num_kv_heads=2, d_ff=128, vocab_size=512)
+    with pytest.raises(ValueError, match="unknown family"):
+        JaxModel(rnn, ShardingPolicy(mesh=None)).init(jax.random.key(0))
+    with pytest.raises(ValueError, match="unknown family"):
+        Model(rnn, device="cpu")
     with pytest.raises(ValueError, match="impl"):
         Model(ARCHS["gemma-2b"].reduced(), device="cpu", impl="xla")
     if not torch.cuda.is_available():
@@ -214,7 +216,9 @@ def test_port_imports_neither_jax_nor_repro():
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'repro')]\n"
         "assert not bad, bad\n"
         "for m in ('repro_torch.models.ssm', 'repro_torch.kernels.ssd_scan',\n"
-        "          'repro_torch.configs.zamba2_7b'):\n"
+        "          'repro_torch.configs.zamba2_7b', 'repro_torch.models.moe',\n"
+        "          'repro_torch.configs.shapes',\n"
+        "          'repro_torch.configs.llama4_maverick_400b_a17b'):\n"
         "    assert m in sys.modules, m\n")
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
         [os.path.join(root, "src"), root]))
@@ -249,6 +253,11 @@ def test_port_sources_import_neither_jax_nor_repro():
              for f in fs if f.endswith(".py")]
     paths.append(os.path.join(root, "chip_smoke.py"))
     assert len(paths) > 40
+    for module in ("models/moe.py", "configs/shapes.py",
+                   "configs/llama4_scout_17b_a16e.py",
+                   "configs/llama4_maverick_400b_a17b.py",
+                   "configs/deepseek_67b.py"):
+        assert os.path.join(pkg, module) in paths, module
     bad = []
     for p in paths:
         with open(p, encoding="utf-8") as f:
