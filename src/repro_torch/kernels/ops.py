@@ -3,7 +3,10 @@
 A CUDA tensor goes to the hand-written kernel, which launches or raises; a
 CPU tensor goes to the plain PyTorch version in ``ref``.  Nothing else
 selects the path: no environment variable, and no fallback when a kernel
-fails to build or launch.
+fails to build or launch.  The kernels have no backward: on a CUDA tensor,
+a call under grad mode with an input that requires grad raises (its
+result would carry no gradient), so training runs the plain versions
+(``Model(impl="plain")``).
 """
 from __future__ import annotations
 
@@ -26,11 +29,24 @@ def _on_cuda(x: torch.Tensor) -> bool:
     raise ValueError(f"no kernel path for device {x.device}")
 
 
+def _kernel_path(name: str, *inputs: Optional[torch.Tensor]) -> bool:
+    """Whether ``name``'s call goes to its kernel (its first input is on
+    the card); raises there if autograd would need the kernel's backward."""
+    if not _on_cuda(inputs[0]):
+        return False
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in inputs):
+        raise RuntimeError(
+            f"{name}: the CUDA kernel has no backward, and an input "
+            f"requires grad; train with Model(impl='plain')")
+    return True
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True,
                     scale: Optional[float] = None) -> torch.Tensor:
     """[B,Sq,H,hd] x [B,Skv,KV,hd]^2 -> [B,Sq,H,hd] (GQA, un-repeated KV)."""
-    if _on_cuda(q):
+    if _kernel_path("flash_attention", q, k, v):
         return _flash.flash_attention(q, k, v, causal=causal, scale=scale)
     return ref.flash_attention_ref(q, k, v, causal=causal, scale=scale)
 
@@ -39,7 +55,7 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                      v_cache: torch.Tensor, cache_len: int, *,
                      scale: Optional[float] = None) -> torch.Tensor:
     """[B,1,H,hd] vs caches [B,S,KV,hd] over ``cache_len`` positions."""
-    if _on_cuda(q):
+    if _kernel_path("decode_attention", q, k_cache, v_cache):
         return _decode.decode_attention(q, k_cache, v_cache, cache_len,
                                         scale=scale)
     return ref.decode_attention_ref(q, k_cache, v_cache, cache_len,
@@ -53,7 +69,7 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     """Mamba2 SSD over [B,S,nh,hd] -> (y, final state [B,nh,hd,ds]).
     ``chunk`` sets the plain version's chunk; the kernel walks fixed
     64-row chunks (the result is the same up to rounding)."""
-    if _on_cuda(x):
+    if _kernel_path("ssd_scan", x, dt, A, Bm, Cm, init_state):
         return _ssd.ssd_scan(x, dt, A, Bm, Cm, init_state=init_state)
     return ref.ssd_scan_ref(x, dt, A, Bm, Cm, chunk=chunk,
                             init_state=init_state)
@@ -63,7 +79,7 @@ def quant_matmul(x_q: torch.Tensor, w_q: torch.Tensor, x_scale: torch.Tensor,
                  w_scale: torch.Tensor, *,
                  out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """int8 [M,K] x int8 [K,N] -> ``out_dtype`` [M,N] with row/col scales."""
-    if _on_cuda(x_q):
+    if _kernel_path("quant_matmul", x_q, w_q, x_scale, w_scale):
         return _qmm.quant_matmul(x_q, w_q, x_scale, w_scale,
                                  out_dtype=out_dtype)
     return ref.quant_matmul_ref(x_q, w_q, x_scale, w_scale, out_dtype)

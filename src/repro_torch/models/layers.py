@@ -2,7 +2,8 @@
 
 PyTorch counterparts of ``repro.models.layers``: weights keep the JAX
 package's unflattened layouts (``[d, H, hd]`` projections) and norm,
-rotary and logit math runs in fp32 whatever the parameter dtype.
+rotary and logit math runs in fp32 whatever the parameter dtype (in
+float64 in a float64 model, the yardstick of the fp32 gradients).
 Attention itself lives in ``repro_torch.kernels``.
 """
 from __future__ import annotations
@@ -11,18 +12,23 @@ import torch
 import torch.nn.functional as F
 
 
+def upcast(x: torch.Tensor) -> torch.Tensor:
+    """``x`` in fp32, or as it is when it is float64."""
+    return x.to(torch.promote_types(x.dtype, torch.float32))
+
+
 def rms_norm(x: torch.Tensor, weight: torch.Tensor,
              eps: float = 1e-5) -> torch.Tensor:
     """RMSNorm scaled by ``(1 + weight)`` (weights are zero-initialised)."""
-    xf = x.float()
+    xf = upcast(x)
     xf = xf * torch.rsqrt(xf.square().mean(-1, keepdim=True) + eps)
-    return (xf * (1.0 + weight.float())).to(x.dtype)
+    return (xf * (1.0 + weight.to(xf.dtype))).to(x.dtype)
 
 
-def rope_frequencies(head_dim: int, theta: float,
-                     device: torch.device) -> torch.Tensor:
-    """[head_dim // 2] inverse frequencies (fp32)."""
-    exponent = torch.arange(0, head_dim, 2, dtype=torch.float32,
+def rope_frequencies(head_dim: int, theta: float, device: torch.device,
+                     dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """[head_dim // 2] inverse frequencies."""
+    exponent = torch.arange(0, head_dim, 2, dtype=dtype,
                             device=device) / head_dim
     return 1.0 / (theta ** exponent)
 
@@ -31,11 +37,12 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
                theta: float) -> torch.Tensor:
     """x: [B, S, H, hd]; positions: [B, S].  Split-half convention: the
     first half of each head pairs with the second half."""
-    inv_freq = rope_frequencies(x.shape[-1], theta, x.device)
-    angles = positions.float()[..., None] * inv_freq       # [B, S, hd/2]
+    xf = upcast(x)
+    inv_freq = rope_frequencies(x.shape[-1], theta, x.device, xf.dtype)
+    angles = positions.to(xf.dtype)[..., None] * inv_freq  # [B, S, hd/2]
     cos = torch.cos(angles)[:, :, None, :]
     sin = torch.sin(angles)[:, :, None, :]
-    x1, x2 = x.float().chunk(2, dim=-1)
+    x1, x2 = xf.chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
 
@@ -69,4 +76,4 @@ def embed(tokens: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
 def logits(x: torch.Tensor, head: torch.Tensor) -> torch.Tensor:
     """[B,S,d] @ [d,V] -> fp32 logits.  The products of two bf16 values are
     exact in fp32, so this equals an fp32-accumulated bf16 product."""
-    return x.float() @ head.float()
+    return upcast(x) @ upcast(head)

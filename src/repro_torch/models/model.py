@@ -8,21 +8,29 @@ holding its parameters as an ``nn.Module``:
 * ``prefill(tokens, frontend_embeds=None, max_seq=None)`` -- last-token
   logits and the cache (KV and/or SSM states)
 * ``decode_step(cache, cache_len, tokens)``            -- one token vs cache
+* ``loss(batch)``                                      -- the training
+  objective, mean next-token cross-entropy (``labels == LOSS_IGNORE``
+  masked), with autograd on
 
 Modality frontends (vlm/audio) are stubs, as in the reference: the first P
 positions take precomputed embeddings.  A hybrid runs one shared attention
 block (``shared_attn``) before each group of ``attn_every`` Mamba2 layers,
 with one KV cache per application.  An MoE model runs groups of
 ``moe_every`` layers: ``moe_every - 1`` dense layers, then one MoE layer
-(``models.moe``), each with its own KV cache.  The training loss is a
-later slice of the port.
+(``models.moe``), each with its own KV cache.
+
+Parameters are made frozen; ``model.requires_grad_(True)`` makes them
+trainable (``training.train_step`` does).  The serving entry points run
+under ``torch.no_grad()``, so their outputs never carry a graph.
 """
 from __future__ import annotations
 
-from typing import List, Optional, Tuple, Union
+from functools import partial
+from typing import Dict, List, Optional, Tuple, Union
 
 import torch
 from torch import nn
+from torch.utils import checkpoint as ckpt
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import kvcache, layers
@@ -31,9 +39,20 @@ from repro_torch.models import ssm as ssm_mod
 from repro_torch.models import transformer as tfm
 
 NUM_FRONTEND_POSITIONS = 64
+LOSS_IGNORE = -1
 DENSE_FAMILIES = ("dense", "vlm", "audio")
 FAMILIES = DENSE_FAMILIES + ("moe", "ssm", "hybrid")
 IMPLS = ("kernel", "plain")
+REMATS = ("none", "full", "dots")
+# "dots" keeps what jax.checkpoint_policies.dots_with_no_batch_dims_saveable
+# keeps: the products with no batch dims (x @ w).  Attention's and the SSD's
+# einsums (bmm) and everything elementwise are recomputed.
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_saveable(ctx, op, *args, **kwargs) -> ckpt.CheckpointPolicy:
+    return (ckpt.CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else ckpt.CheckpointPolicy.PREFER_RECOMPUTE)
 
 
 def resolve_device(device: Union[str, torch.device]) -> torch.device:
@@ -56,12 +75,16 @@ class Model(nn.Module):
     ``impl`` routes every kernel of the model (attention and SSD) through
     ``kernels.ops`` (``"kernel"``) or to the plain versions directly
     (``"plain"``).  ``moe_dispatch`` is the MoE layers' dispatch
-    (``models.moe.DISPATCHES``)."""
+    (``models.moe.DISPATCHES``).  ``remat`` (``REMATS``, the reference's)
+    recomputes each block in the backward pass under autograd: all of it
+    (``"full"``) or all but its ``x @ w`` products (``"dots"``).  The CUDA
+    kernels have no backward: training runs ``impl="plain"``."""
 
     def __init__(self, arch: ArchConfig,
                  device: Union[str, torch.device] = "cuda",
                  dtype: torch.dtype = torch.bfloat16,
-                 impl: str = "kernel", moe_dispatch: str = "auto"):
+                 impl: str = "kernel", moe_dispatch: str = "auto",
+                 remat: str = "none"):
         super().__init__()
         if arch.family not in FAMILIES:
             raise ValueError(f"{arch.name}: unknown family {arch.family!r}")
@@ -70,11 +93,14 @@ class Model(nn.Module):
         if moe_dispatch not in moe_mod.DISPATCHES:
             raise ValueError(f"moe_dispatch {moe_dispatch!r} not in "
                              f"{moe_mod.DISPATCHES}")
+        if remat not in REMATS:
+            raise ValueError(f"remat {remat!r} not in {REMATS}")
         self.arch = arch
         self.device = resolve_device(device)
         self.dtype = dtype
         self.impl = impl
         self.moe_dispatch = moe_dispatch
+        self.remat = remat
         d, V = arch.d_model, arch.vocab_size
 
         def param(*shape):
@@ -174,6 +200,16 @@ class Model(nn.Module):
         return torch.arange(S, dtype=torch.int32,
                             device=self.device).expand(B, S)
 
+    def _block(self, fn, *args):
+        """``fn(*args)``, recomputed in the backward pass as ``remat``
+        says when autograd records it."""
+        if self.remat == "none" or not torch.is_grad_enabled():
+            return fn(*args)
+        extra = ({"context_fn": partial(
+            ckpt.create_selective_checkpoint_contexts, _dots_saveable)}
+            if self.remat == "dots" else {})
+        return ckpt.checkpoint(fn, *args, use_reentrant=False, **extra)
+
     # ------------------------------------------------------------------
     def _body_full(self, h: torch.Tensor, kv_seq: Optional[int] = None,
                    want_cache: bool = True
@@ -196,11 +232,12 @@ class Model(nn.Module):
 
         def attend(h, blk, i):
             if isinstance(blk, moe_mod.MoEBlock):
-                h, (k, v) = moe_mod.moe_block_full(
-                    h, blk, arch, positions, self.impl, self.moe_dispatch)
+                h, (k, v) = self._block(
+                    moe_mod.moe_block_full, h, blk, arch, positions,
+                    self.impl, self.moe_dispatch)
             else:
-                h, (k, v) = tfm.dense_block_full(h, blk, arch, positions,
-                                                 self.impl)
+                h, (k, v) = self._block(tfm.dense_block_full, h, blk, arch,
+                                        positions, self.impl)
             if kv_seq is not None:
                 cache["k"][i][:, :S] = k
                 cache["v"][i][:, :S] = v
@@ -211,8 +248,8 @@ class Model(nn.Module):
 
         def mamba(h, lo, hi):
             for blk in self.blocks[lo:hi]:
-                h, state = ssm_mod.ssm_block_full(h, blk, arch,
-                                                  impl=self.impl)
+                h, state = self._block(ssm_mod.ssm_block_full, h, blk,
+                                       arch, None, self.impl)
                 if want_cache:
                     cache["ssm"].append(state)
             return h
@@ -227,14 +264,31 @@ class Model(nn.Module):
                 h = attend(h, blk, i)
         return h, cache
 
+    def _logits(self, tokens: torch.Tensor,
+                frontend_embeds: Optional[torch.Tensor]) -> torch.Tensor:
+        h, _ = self._body_full(self.embed_inputs(tokens, frontend_embeds),
+                               want_cache=False)
+        return self.head(h)
+
     @torch.no_grad()
     def forward(self, tokens: torch.Tensor,
                 frontend_embeds: Optional[torch.Tensor] = None
                 ) -> torch.Tensor:
         """Full-sequence forward -> fp32 logits [B, S, V]."""
-        h, _ = self._body_full(self.embed_inputs(tokens, frontend_embeds),
-                               want_cache=False)
-        return self.head(h)
+        return self._logits(tokens, frontend_embeds)
+
+    def loss(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """Mean next-token cross-entropy over the labels that are not
+        ``LOSS_IGNORE`` (0 when all are), as the reference computes it:
+        ``logsumexp`` of the fp32 logits minus the label's logit.
+        ``batch``: ``tokens`` and ``labels`` [B, S] (integer), and
+        ``frontend_embeds`` for a vlm/audio arch, on the model's device."""
+        logits = self._logits(batch["tokens"], batch.get("frontend_embeds"))
+        labels = batch["labels"].long()
+        lse = torch.logsumexp(logits, dim=-1)
+        ll = logits.gather(-1, labels.clamp_min(0)[..., None])[..., 0]
+        mask = (labels != LOSS_IGNORE).to(logits.dtype)
+        return ((lse - ll) * mask).sum() / mask.sum().clamp_min(1.0)
 
     @torch.no_grad()
     def prefill(self, tokens: torch.Tensor,

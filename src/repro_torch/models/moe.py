@@ -96,7 +96,7 @@ class Routes(NamedTuple):
 def _route(x: torch.Tensor, blk: MoEBlock, arch: ArchConfig):
     """fp32 routing -> (gate, idx, probs): top-k over the last dim, the k
     gates renormalised to sum to one."""
-    logits = x.float() @ blk.router.float()
+    logits = layers.upcast(x) @ layers.upcast(blk.router)
     probs = torch.softmax(logits, dim=-1)
     gate, idx = torch.topk(probs, arch.moe.experts_per_token, dim=-1)
     return gate / gate.sum(-1, keepdim=True), idx, probs

@@ -3,7 +3,7 @@
 PyTorch counterpart of ``repro.models.ssm``.  One ``SSMBlock`` holds one
 layer's parameters in the JAX package's per-layer layouts (``wz``/``wx``
 ``[d, nh, hd]``, ``wo [nh, hd, d]``, ...); ``A_log`` and ``dt_bias`` stay
-fp32 whatever the model's dtype, as the reference keeps them.  Full-sequence
+fp32 in a bf16 model, as the reference keeps them.  Full-sequence
 mode runs the SSD through ``kernels.ops.ssd_scan`` (the CUDA kernel on a
 CUDA tensor, its plain dual form on a CPU one) or, with ``impl="plain"``,
 the plain version directly.  Decode keeps the recurrent state
@@ -65,7 +65,8 @@ class SSMBlock(nn.Module):
         for name, shape in block_shapes(arch).items():
             self.register_parameter(name, nn.Parameter(torch.empty(
                 shape, device=device,
-                dtype=torch.float32 if name in _FP32 else dtype),
+                dtype=(torch.promote_types(dtype, torch.float32)
+                       if name in _FP32 else dtype)),
                 requires_grad=False))
 
     @torch.no_grad()
@@ -125,9 +126,9 @@ def _gated_out(y: torch.Tensor, z: torch.Tensor, p: SSMBlock,
                arch: ArchConfig) -> torch.Tensor:
     """Gated RMSNorm (scaled by ``1 + gate_norm``) and the out-projection.
     y (fp32), z: [B, S, nh, hd] -> [B, S, d]."""
-    y = y * F.silu(z.float())
+    y = y * F.silu(layers.upcast(z))
     y = y * torch.rsqrt(y.square().mean(-1, keepdim=True) + arch.norm_eps)
-    y = (y * (1.0 + p.gate_norm.float())).to(z.dtype)
+    y = (y * (1.0 + p.gate_norm.to(y.dtype))).to(z.dtype)
     return y.flatten(2) @ p.wo.flatten(0, 1)
 
 
@@ -138,7 +139,7 @@ def _project(hn: torch.Tensor, p: SSMBlock, arch: ArchConfig):
     lead = hn.shape[:-1]
     z = (hn @ p.wz.flatten(1)).view(*lead, nh, hd)
     x = (hn @ p.wx.flatten(1)).view(*lead, nh, hd)
-    dt = hn.float() @ p.wdt.float()
+    dt = layers.upcast(hn) @ layers.upcast(p.wdt)
     return z, x, hn @ p.wB, hn @ p.wC, dt
 
 
@@ -162,9 +163,10 @@ def ssm_block_full(h: torch.Tensor, p: SSMBlock, arch: ArchConfig,
     A = -torch.exp(p.A_log)
     s0 = init_state.ssd if init_state is not None else None
     scan = ops.ssd_scan if impl == "kernel" else ref.ssd_scan_ref
-    y, final = scan(x.float(), dt, A, Bm.float(), Cm.float(),
+    x = layers.upcast(x)
+    y, final = scan(x, dt, A, layers.upcast(Bm), layers.upcast(Cm),
                     chunk=s.chunk_size, init_state=s0)
-    y = y + x.float() * p.D.float()[:, None]
+    y = y + x * p.D.to(x.dtype)[:, None]
     out = _gated_out(y, z, p, arch)
 
     cw = s.conv_width
@@ -188,7 +190,7 @@ def ssm_block_decode(h: torch.Tensor, p: SSMBlock, arch: ArchConfig,
 
     def conv_step(tail, new, w):
         full = torch.cat([tail, new[:, None]], dim=1)             # [B, cw, ...]
-        out = (full.float() * w.float()).sum(1).to(new.dtype)
+        out = (layers.upcast(full) * layers.upcast(w)).sum(1).to(new.dtype)
         return F.silu(out), full[:, 1:]
 
     x, conv_x = conv_step(state.conv_x, x_new, p.conv_x)
@@ -197,8 +199,10 @@ def ssm_block_decode(h: torch.Tensor, p: SSMBlock, arch: ArchConfig,
 
     dt = F.softplus(dt + p.dt_bias)
     A = -torch.exp(p.A_log)
-    y, ssd = ssd_step(x.float(), dt, A, Bm.float(), Cm.float(), state.ssd)
-    y = y + x.float() * p.D.float()[:, None]
+    x = layers.upcast(x)
+    y, ssd = ssd_step(x, dt, A, layers.upcast(Bm), layers.upcast(Cm),
+                      state.ssd)
+    y = y + x * p.D.to(x.dtype)[:, None]
     out = _gated_out(y[:, None], z[:, None], p, arch)
     return h + out, SSMLayerState(ssd=ssd, conv_x=conv_x, conv_B=conv_B,
                                   conv_C=conv_C)

@@ -1,0 +1,75 @@
+"""int8 error-feedback gradient compression for the data-parallel
+all-reduce.
+
+PyTorch counterpart of ``repro.training.compression``: gradients quantize
+to int8 with a per-tensor scale before the all-reduce (4x less traffic
+than fp32), and the quantization residual is carried in an error-feedback
+buffer so the bias vanishes over steps (EF-SGD, Karimireddy et al. 2019).
+
+Where the reference names a ``shard_map`` axis, ``compressed_psum`` takes
+a ``torch.distributed`` process group: the scale is all-reduced (MAX), the
+gradient requantized against it and the int8 payload all-reduced (SUM) as
+int32.  With no group it is the identity all-reduce of one process.
+Gradients and error buffers are trees of nested dicts of tensors, as the
+reference's pytrees; each leaf has its own scale.
+"""
+from __future__ import annotations
+
+from typing import Any, Callable, Mapping, Optional, Tuple
+
+import torch
+import torch.distributed as dist
+
+
+def map_tree(fn: Callable, tree: Any, *rest: Any) -> Any:
+    """``fn`` over the leaves of nested dicts (``rest``: same structure)."""
+    if isinstance(tree, Mapping):
+        return {k: map_tree(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
+    return fn(tree, *rest)
+
+
+def quantize_grad(g: torch.Tensor, err: torch.Tensor
+                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(int8 payload, fp32 scale, new error buffer)."""
+    gc = g.to(torch.float32) + err
+    amax = torch.max(torch.abs(gc))
+    scale = torch.clamp(amax, min=1e-12) / 127.0
+    q = torch.clamp(torch.round(gc / scale), -127, 127).to(torch.int8)
+    new_err = gc - q.to(torch.float32) * scale
+    return q, scale, new_err
+
+
+def dequantize_grad(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    return q.to(torch.float32) * scale
+
+
+def init_error_buffers(grads: Any) -> Any:
+    return map_tree(lambda g: torch.zeros(g.shape, dtype=torch.float32,
+                                      device=g.device), grads)
+
+
+def compressed_psum(grads: Any, err_buffers: Any,
+                    group: Optional[dist.ProcessGroup] = None
+                    ) -> Tuple[Any, Any]:
+    """Error-feedback int8 all-reduce of a tree of gradients over
+    ``group`` (every rank passes the same tree, in the same order).
+    Returns (mean fp32 grads, new error buffers), trees alike."""
+
+    def one(g, err):
+        q, scale, new_err = quantize_grad(g, err)
+        if group is None:
+            return dequantize_grad(q, scale), new_err
+        n = dist.get_world_size(group)
+        # a consistent scale across ranks: the max
+        dist.all_reduce(scale, op=dist.ReduceOp.MAX, group=group)
+        # requantize against the shared scale so sums are exact
+        gc = g.to(torch.float32) + err
+        q = torch.clamp(torch.round(gc / scale), -127, 127).to(torch.int8)
+        new_err = gc - q.to(torch.float32) * scale
+        total = q.to(torch.int32)
+        dist.all_reduce(total, op=dist.ReduceOp.SUM, group=group)
+        return total.to(torch.float32) * scale / n, new_err
+
+    out = map_tree(one, grads, err_buffers)
+    return map_tree(lambda o: o[0], out), map_tree(lambda o: o[1], out)

@@ -8,8 +8,11 @@ swapped for one whose planner budget binds by nodes (``bb_time_s=120``,
 far above what a plan takes), so CPU load cannot change a plan.
 
 The file also holds that the ast scan of the port's sources
-(``tests/test_torch_models.py``) reaches ``gateway/`` and ``launch/``,
-and that importing them loads neither ``jax`` nor ``repro``.
+(``tests/test_torch_models.py``) reaches ``gateway/``, ``launch/`` and
+``training/``, and that importing them loads neither ``jax`` nor
+``repro``.  ``python -m repro_torch.launch.train`` runs here on the CPU
+(``--device cpu``): the reference's printed lines, a resumed run, and the
+refusals (more than one device; no card under the default ``--device``).
 """
 import ast
 import json
@@ -30,7 +33,10 @@ from repro_torch.launch import serve as pserve  # noqa: E402
 
 ROOT = os.path.join(os.path.dirname(__file__), "..")
 NEW_SOURCES = ("gateway/__init__.py", "gateway/core.py", "gateway/loadgen.py",
-               "gateway/server.py", "launch/serve.py")
+               "gateway/server.py", "launch/serve.py", "launch/train.py",
+               "training/__init__.py", "training/data.py",
+               "training/optimizer.py", "training/compression.py",
+               "training/train_step.py", "training/checkpoint.py")
 
 
 def _binding(pkg):
@@ -125,6 +131,8 @@ def test_gateway_and_launch_import_neither_jax_nor_repro():
         "import sys\n"
         "import repro_torch.gateway, repro_torch.launch.serve\n"
         "import repro_torch.gateway.server, repro_torch.gateway.loadgen\n"
+        "import repro_torch.launch.train, repro_torch.training.train_step\n"
+        "import repro_torch.training.checkpoint\n"
         "bad = [m for m in sys.modules\n"
         "       if m.split('.')[0] in ('jax', 'repro')]\n"
         "assert not bad, bad\n")
@@ -132,3 +140,115 @@ def test_gateway_and_launch_import_neither_jax_nor_repro():
     proc = subprocess.run([sys.executable, "-c", code], env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
+
+
+# ---------------------------------------------------------------------------
+# python -m repro_torch.launch.train
+# The reference's line: f"step {step:5d}  loss {loss:7.4f}  gnorm
+# {gnorm:8.3f}  lr {lr:.2e}  {dt:6.1f}s" (src/repro/launch/train.py:86-89)
+STEP_LINE = re.compile(r"step [ \d]{5}  loss [ \d.-]{7}  gnorm [ \d.]{8}  "
+                       r"lr \d\.\d\de[-+]\d\d  [ \d.]{6}s")
+
+
+def _train(*argv, timeout=120):
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    return subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train", *argv], env=env,
+        capture_output=True, text=True, timeout=timeout)
+
+
+def test_train_launcher_on_the_cpu_prints_the_reference_lines(tmp_path):
+    ckpt_dir = str(tmp_path / "ckpt")
+    common = ("--arch", "mamba2-130m", "--reduced", "--device", "cpu",
+              "--ckpt-dir", ckpt_dir, "--log-every", "1")
+    first = _train(*common, "--steps", "4")
+    assert first.returncode == 0, first.stderr
+    lines = first.stdout.splitlines()
+    assert [ln.split()[1] for ln in lines[:-1]] == ["0", "1", "2", "3"]
+    assert all(STEP_LINE.fullmatch(ln) for ln in lines[:-1]), lines
+    assert lines[-1] == "done."
+    assert open(os.path.join(ckpt_dir, "LATEST")).read() == "step_00000004"
+    # --resume picks up at the saved step, with the state it saved
+    again = _train(*common, "--steps", "6", "--resume")
+    assert again.returncode == 0, again.stderr
+    lines = again.stdout.splitlines()
+    assert lines[0] == "resumed from step 4"
+    assert [ln.split()[1] for ln in lines[1:-1]] == ["4", "5"]
+    assert all(STEP_LINE.fullmatch(ln) for ln in lines[1:-1])
+    assert open(os.path.join(ckpt_dir, "LATEST")).read() == "step_00000006"
+
+
+def test_train_launcher_refuses_more_than_one_device_and_no_card():
+    many = _train("--arch", "gemma-2b", "--reduced", "--device", "cpu",
+                  "--steps", "2", "--model-parallel", "2")
+    assert many.returncode != 0
+    assert "sharding slice" in many.stderr
+    if not _has_card():
+        none = _train("--arch", "gemma-2b", "--reduced", "--steps", "2")
+        assert none.returncode != 0
+        assert "no CUDA device" in none.stderr
+
+
+def _has_card() -> bool:
+    import torch
+    return torch.cuda.is_available()
+
+
+@pytest.fixture
+def cpu_train_phase(monkeypatch):
+    """``chip_smoke.phase_train`` on the CPU: every arch it names reduced,
+    CUDA devices resolved to the CPU, the card's memory calls stubbed, and
+    tensors taken for CUDA ones by the kernel wrappers (so the refusal is
+    exercised)."""
+    import torch
+
+    import chip_smoke
+    import repro_torch.configs as configs
+    from repro_torch.kernels import ops
+    from repro_torch.models import model as model_mod
+    full = configs.get_arch
+    monkeypatch.setattr(configs, "get_arch", lambda n: full(n).reduced())
+    monkeypatch.setattr(model_mod, "resolve_device",
+                        lambda d: torch.device("cpu"))
+    monkeypatch.setattr(ops, "_on_cuda", lambda x: True)
+    for name in ("synchronize", "reset_peak_memory_stats", "empty_cache"):
+        monkeypatch.setattr(torch.cuda, name, lambda *a, **k: None)
+    for name in ("max_memory_allocated", "memory_allocated"):
+        monkeypatch.setattr(torch.cuda, name, lambda *a, **k: 0)
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield lambda: chip_smoke.phase_train(torch, {"nvidia_smi": "cpu"}, 0)
+    torch.set_num_threads(n)
+
+
+def test_chip_smoke_train_phase_rehearsal(cpu_train_phase, capsys,
+                                          monkeypatch):
+    """The train phase passes on reduced CPU models, and fails when the
+    kernel wrappers accept autograd or a restore loads nothing."""
+    from repro_torch.kernels import ops
+    cpu_train_phase()
+    lines = [json.loads(ln) for ln in capsys.readouterr().out.splitlines()
+             if ln.startswith("{")]
+    by = {d["phase"]: d for d in lines}
+    assert set(by) == {"train_checks", "train", "train_restart",
+                       "train_phase"}
+    assert "no backward" in by["train_checks"]["kernel_refusal"]
+    assert by["train"]["optimizer_step"] == 12
+    assert by["train"]["kernel_launches"] == dict.fromkeys(
+        ("flash_attention", "decode_attention", "ssd_scan", "quant_matmul"),
+        0)
+    assert by["train_restart"]["resumed_from"] == 3
+    assert by["train_restart"]["abs_diff"] == 0.0
+    monkeypatch.setattr(ops, "_kernel_path", lambda name, *t: False)
+    with pytest.raises(AssertionError, match="did not refuse"):
+        cpu_train_phase()
+    monkeypatch.undo()
+
+
+def test_chip_smoke_train_phase_catches_a_lost_restore(cpu_train_phase,
+                                                       monkeypatch):
+    from repro_torch.training import train_step
+    monkeypatch.setattr(train_step, "load_state_tree",
+                        lambda model, state, tree: state)
+    with pytest.raises(AssertionError, match="restart"):
+        cpu_train_phase()

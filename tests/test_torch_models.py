@@ -218,6 +218,8 @@ def test_port_imports_neither_jax_nor_repro():
         "for m in ('repro_torch.models.ssm', 'repro_torch.kernels.ssd_scan',\n"
         "          'repro_torch.configs.zamba2_7b', 'repro_torch.models.moe',\n"
         "          'repro_torch.configs.shapes',\n"
+        "          'repro_torch.training.train_step',\n"
+        "          'repro_torch.training.checkpoint',\n"
         "          'repro_torch.configs.llama4_maverick_400b_a17b'):\n"
         "    assert m in sys.modules, m\n")
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
@@ -256,7 +258,10 @@ def test_port_sources_import_neither_jax_nor_repro():
     for module in ("models/moe.py", "configs/shapes.py",
                    "configs/llama4_scout_17b_a16e.py",
                    "configs/llama4_maverick_400b_a17b.py",
-                   "configs/deepseek_67b.py"):
+                   "configs/deepseek_67b.py", "training/__init__.py",
+                   "training/data.py", "training/optimizer.py",
+                   "training/compression.py", "training/train_step.py",
+                   "training/checkpoint.py", "launch/train.py"):
         assert os.path.join(pkg, module) in paths, module
     bad = []
     for p in paths:
