@@ -164,6 +164,20 @@ Phases, each printing one JSON line; any failure exits non-zero:
               remat.  Last, mamba2-130m at full width and depth in bf16:
               6 steps straight against 3 + checkpoint + restore + 3 (a
               temporary directory, removed) within 1e-6.
+14. shard   -- the sharding substrate (sharding/policy.py, launch/mesh.py,
+              DTensor parameters) on the card's 1x1 ("data", "model") mesh
+              of a one-rank NCCL group: full-width qwen2-7b and
+              mamba2-130m in bf16 serve the serve phase's 8 requests
+              without a policy and then with the decode-kind policy on the
+              same weights (parameters placed as DTensors, kernels reached
+              on local shards); tokens identical, first-step logits within
+              LOGITS_TOL, every kernel's launches equal and exact; wall per
+              batch, idle share of a profiled batch, graphed or eager
+              decode, peak memory and DTensor's collectives per batch,
+              both ways.  Then granite-3-2b at full width (8 x 256) trains
+              3 steps without a policy and, its state freed, 3 from the
+              same seed under the training policy: losses within 1e-3
+              relative, step times, peak memory and collectives.
 
 The second-to-last line is ``{"kernels": [...]}``, one row per kernel at
 its main serving shape (four for quant_matmul: prefill and decode, each
@@ -3298,6 +3312,237 @@ def phase_train(torch, card, seed: int) -> None:
 
 
 # ---------------------------------------------------------------------------
+SHARD_MESH = (("data", 1), ("model", 1))   # one card: the 1x1 mesh
+SHARD_TRAIN_STEPS = 3
+SHARD_LOSS_RTOL = 1e-3
+
+
+def _comm_counts(mode) -> dict:
+    return {str(op): n for op, n in mode.get_comm_counts().items()}
+
+
+def _device_busy_ms(prof) -> float:
+    from torch.autograd import DeviceType
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA) / 1e3
+
+
+def _shard_serve_way(torch, model, prompts, probe, busy_of) -> dict:
+    """One way (with or without the policy) of the shard phase's serve:
+    the probe's first-step logits, the serve batch through Batcher ->
+    Engine with the launch counts set to 0 just before it and read just
+    after, then one more batch of the probe under the profiler for the
+    device's idle share and one under ``CommDebugMode`` for the
+    collectives DTensor issues (a dispatch mode: it slows every op, so it
+    stays out of the timed batches)."""
+    import numpy as np
+    from torch.distributed.tensor.debug import CommDebugMode
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels import decode_attention as dmod
+    from repro_torch.kernels import flash_attention as fmod
+    from repro_torch.kernels import quant_matmul as qmod
+    from repro_torch.kernels import ssd_scan as smod
+    from repro_torch.serving.batcher import Batcher, ServeRequest
+    from repro_torch.serving.engine import Engine, EngineConfig
+    from repro_torch.sharding.policy import whole
+
+    eng = Engine(model, EngineConfig(max_batch=SERVE_BATCH,
+                                     max_seq=SERVE_MAX_SEQ))
+    S = max(len(p) for p in prompts)
+    eng.generate(np.zeros((SERVE_BATCH, S), np.int32), max_new=2)  # warm-up
+    tokens = torch.as_tensor(probe, device=model.device)
+    first = whole(eng.prefill(tokens)[0]).float()
+    torch.cuda.synchronize()
+    clock = [0.0]
+    batcher = Batcher(eng, timeout_ms=1e9, max_new=SERVE_NEW,
+                      clock=lambda: clock[0])
+    for i, p in enumerate(prompts):
+        batcher.submit(ServeRequest(i, p, deadline_s=1e9, submitted_s=0.0))
+    mods = {"flash_attention": fmod, "decode_attention": dmod,
+            "ssd_scan": smod, "quant_matmul": qmod}
+    torch.cuda.reset_peak_memory_stats()
+    for mod in mods.values():
+        mod.launches = 0
+    done, walls = [], []
+    while batcher.queue:
+        t0 = time.monotonic()
+        served = batcher.pump()
+        torch.cuda.synchronize()
+        walls.append(time.monotonic() - t0)
+        if not served:
+            raise AssertionError("shard: the batcher launched nothing")
+        done += served
+    launches = {name: mod.launches for name, mod in mods.items()}
+    peak = torch.cuda.max_memory_allocated()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.monotonic()
+        eng.generate(probe, max_new=SERVE_NEW)
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+    busy = busy_of(prof)
+    with CommDebugMode() as comms:
+        eng.generate(probe, max_new=SERVE_NEW)
+    results = [r.result for r in sorted(done, key=lambda r: r.req_id)]
+    return {"decode_mode": eng.decode_mode, "batches": len(walls),
+            "wall_s_per_batch": walls, "launches": launches,
+            "collectives_per_batch": _comm_counts(comms),
+            "peak_bytes": peak, "profiled_batch_wall_s": wall,
+            "profiled_device_busy_ms": busy,
+            "idle_share": 1.0 - busy / 1e3 / wall,
+            "_results": results, "_first": first}
+
+
+def _shard_serve(torch, card, name: str, mesh, seed: int,
+                 busy_of=_device_busy_ms) -> dict:
+    """A model served without a policy and then with the decode-kind
+    policy on the mesh, on the same weights: tokens must be identical, the
+    first-step logits within LOGITS_TOL, every kernel's launches equal."""
+    import numpy as np
+    from repro_torch.configs.shapes import ShapeConfig
+    from repro_torch.models import Model
+    from repro_torch.models.kvcache import num_attn_applications
+    from repro_torch.sharding.policy import make_policy
+
+    model = _model(torch, name)
+    arch = model.arch
+    prompts = _serve_prompts(seed, arch.vocab_size)
+    S = max(len(p) for p in prompts)
+    probe = np.random.default_rng(3).integers(
+        0, arch.vocab_size, size=(SERVE_BATCH, S)).astype(np.int32)
+    plain = _shard_serve_way(torch, model, prompts, probe, busy_of)
+    policy = make_policy(arch, ShapeConfig("serve", SERVE_MAX_SEQ,
+                                           SERVE_BATCH, "decode"), mesh)
+    sharded_model = Model(arch, device=model.device, dtype=model.dtype,
+                          policy=policy)
+    sharded_model.load_state_dict(model.state_dict())
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    sharded = _shard_serve_way(torch, sharded_model, prompts, probe, busy_of)
+    from torch.distributed.tensor import DTensor
+    placed = sum(isinstance(p, DTensor) for p in sharded_model.parameters())
+    n_params = len(list(sharded_model.parameters()))
+    del sharded_model
+    gc.collect()
+    torch.cuda.empty_cache()
+    a, b = plain.pop("_first"), sharded.pop("_first")
+    rel = float((a - b).abs().max() / a.abs().max())
+    same_tokens = all(np.array_equal(x, y) for x, y in
+                      zip(plain.pop("_results"), sharded.pop("_results")))
+    n_attn = num_attn_applications(arch)
+    n_ssm = arch.num_layers if arch.ssm is not None else 0
+    expect = {"flash_attention": n_attn * plain["batches"],
+              "decode_attention": n_attn * plain["batches"] * (SERVE_NEW - 1),
+              "ssd_scan": n_ssm * plain["batches"], "quant_matmul": 0}
+    fails = []
+    if not same_tokens:
+        fails.append(f"{name}: tokens differ with the policy")
+    if not rel < LOGITS_TOL:
+        fails.append(f"{name}: first-step logits {rel} >= {LOGITS_TOL}")
+    if not plain["launches"] == sharded["launches"] == expect:
+        fails.append(f"{name}: launches {plain['launches']} / "
+                     f"{sharded['launches']} != {expect}")
+    if placed != n_params:
+        fails.append(f"{name}: {placed} of {n_params} parameters placed")
+    emit("shard_serve", card=card["nvidia_smi"], arch=arch.name,
+         mesh=dict(zip(mesh.mesh_dim_names, tuple(mesh.shape))),
+         attn_mode=policy.attn_mode, rules=policy.rules,
+         parameters_placed=placed, tokens_identical=same_tokens,
+         first_logits_rel_err=rel, logits_tol=LOGITS_TOL,
+         expected_launches=expect, plain=plain, sharded=sharded,
+         failures=fails)
+    return {"failures": fails, "launches": sharded["launches"]}
+
+
+def _shard_train_way(torch, arch, policy, device: str) -> dict:
+    """SHARD_TRAIN_STEPS steps of granite-3-2b at full width in bf16 on
+    the plain attention (the launcher's setup, with ``policy``), then one
+    more under ``CommDebugMode`` for the collectives of a step."""
+    from torch.distributed.tensor.debug import CommDebugMode
+    from repro_torch.models import Model
+    from repro_torch.training import data as data_mod
+    from repro_torch.training import optimizer as opt
+    from repro_torch.training.train_step import (init_train_state,
+                                                 make_train_step)
+    torch.cuda.reset_peak_memory_stats()
+    model = Model(arch, device=device, impl="plain", dtype=torch.bfloat16,
+                  policy=policy)
+    cfg = opt.AdamWConfig(lr=1e-3, warmup_steps=min(20, TRAIN_STEPS // 5),
+                          total_steps=TRAIN_STEPS)
+    state = init_train_state(
+        model, torch.Generator(device=device).manual_seed(0), cfg)
+    step_fn = make_train_step(model, cfg)
+    dcfg = data_mod.for_arch(arch, TRAIN_S, TRAIN_B)
+    losses, walls = [], []
+    for i in range(SHARD_TRAIN_STEPS):
+        batch = data_mod.batch_at_step(dcfg, i)
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        state, metrics = step_fn(state, batch)
+        torch.cuda.synchronize()
+        walls.append(time.monotonic() - t0)
+        losses.append(float(metrics["loss"]))
+    peak = torch.cuda.max_memory_allocated()
+    with CommDebugMode() as comms:
+        state, _ = step_fn(state, data_mod.batch_at_step(
+            dcfg, SHARD_TRAIN_STEPS))
+    out = {"losses": losses, "step_s": walls,
+           "collectives_per_step": _comm_counts(comms), "peak_bytes": peak}
+    del model, state, step_fn
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_shard(torch, card, seed: int, device: str = "cuda",
+                backend: str = "nccl", busy_of=_device_busy_ms) -> dict:
+    """The sharding substrate on the card's 1x1 mesh: qwen2-7b and
+    mamba2-130m served with and without the decode policy, granite-3-2b
+    trained with and without the training policy (module docstring)."""
+    import shutil
+    import tempfile
+    import torch.distributed as dist
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.shapes import ShapeConfig
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.sharding.policy import make_policy
+    t0 = time.monotonic()
+    tmp = tempfile.mkdtemp(prefix="shard_")
+    dist.init_process_group(backend, store=dist.FileStore(
+        os.path.join(tmp, "store"), 1), rank=0, world_size=1)
+    try:
+        mesh = make_host_mesh(SHARD_MESH, device_type=device)
+        fails, launches = [], {}
+        for name in (QWEN, MAMBA):
+            got = _shard_serve(torch, card, name, mesh, seed, busy_of)
+            fails += got["failures"]
+            launches[name] = got["launches"]
+        arch = get_arch(GRANITE)
+        plain = _shard_train_way(torch, arch, None, device)
+        policy = make_policy(arch, ShapeConfig("cli", TRAIN_S, TRAIN_B,
+                                               "train"), mesh, training=True)
+        sharded = _shard_train_way(torch, arch, policy, device)
+        rel = max(abs(a - b) / abs(a) for a, b in
+                  zip(plain["losses"], sharded["losses"]))
+        if not rel <= SHARD_LOSS_RTOL:
+            fails.append(f"train: losses {plain['losses']} / "
+                         f"{sharded['losses']} differ by {rel}")
+        emit("shard_train", card=card["nvidia_smi"], arch=arch.name,
+             batch=TRAIN_B, seq=TRAIN_S, rules=policy.rules,
+             max_loss_rel_diff=rel, loss_rtol=SHARD_LOSS_RTOL, plain=plain,
+             sharded=sharded)
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+    emit("shard_phase", card=card["nvidia_smi"],
+         phase_host_wall_s=time.monotonic() - t0, failures=fails)
+    if fails:
+        raise AssertionError("shard: " + "; ".join(fails))
+    return launches
+
+
+# ---------------------------------------------------------------------------
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0,
@@ -3338,6 +3583,7 @@ def main(argv=None) -> int:
     del planned                   # the compound engines: the card for training
     gc.collect()
     phase_train(torch, card, args.seed)
+    phase_shard(torch, card, args.seed)
     for row in rows:
         if row["name"] == "quant_matmul":   # no serve run calls it
             row["launches"] = int8_launches[row["model"]][row["layout"]]

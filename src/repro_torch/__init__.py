@@ -7,8 +7,11 @@ imports ``torch`` and never ``jax`` or ``repro``.  Its hot path runs
 through hand-written CUDA kernels for Hopper (``kernels/csrc``); on a CPU
 tensor the kernels' plain PyTorch versions run instead.
 
-Entry points (``models.Model``, ``runtime.EngineBackend``) take
-``device``, which defaults to ``"cuda"`` and raises when no card is
-present; pass ``device="cpu"`` to run on the host.  ``serving.Engine``
-runs on its model's device.
+Entry points (``models.Model``, ``runtime.EngineBackend``,
+``launch/train.py``) take ``device``, which defaults to ``"cuda"`` and
+raises when no card is present; pass ``device="cpu"`` to run on the host.
+``serving.Engine`` runs on its model's device.  ``Model`` also takes a
+``sharding.policy.ShardingPolicy``: over a ``DeviceMesh`` its parameters
+are DTensors, and ``launch/train.py`` builds one (under ``torchrun``) for
+more than one rank or ``--model-parallel`` > 1.
 """

@@ -7,10 +7,20 @@ fails to build or launch.  The kernels have no backward: on a CUDA tensor,
 a call under grad mode with an input that requires grad raises (its
 result would carry no gradient), so training runs the plain versions
 (``Model(impl="plain")``).
+
+A DTensor input (a model under a ``ShardingPolicy`` with a mesh) runs
+through :func:`on_shards`: each wrapper takes its inputs to placements on
+which its work is local (batch and query/KV heads for the attention
+kernels; batch, SSM heads and head-dim rows for the SSD; rows or columns
+for the int8 GEMM), redistributing explicitly where a sharding cannot be
+taken locally (a sharded sequence, a sequence-sharded cache: an
+all-gather), and calls the kernel, or its plain version on the CPU, on
+each rank's local shards.  The extension itself never sees a DTensor.
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import math
+from typing import Callable, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -19,6 +29,135 @@ from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import quant_matmul as _qmm
 from repro_torch.kernels import ref
 from repro_torch.kernels import ssd_scan as _ssd
+from repro_torch.sharding.policy import is_dtensor, redistribute
+
+
+def _sharded(*inputs) -> bool:
+    return any(is_dtensor(t) for t in inputs)
+
+
+def _plan(mesh, sizes: dict, candidates) -> List[Optional[int]]:
+    """Per mesh dim, the tensor dim the work splits on there, or None
+    (replicated): the first of ``candidates`` (``(tensor, dims)`` pairs)
+    sharded on that mesh dim over one of its ``dims``, where that dim's
+    remaining size (``sizes``, divided as shards are taken) splits evenly
+    over the mesh dim."""
+    plan = []
+    for i, n in enumerate(mesh.shape):
+        dim = next((x.placements[i].dim for x, dims in candidates
+                    if is_dtensor(x) and x.placements[i].is_shard()
+                    and x.placements[i].dim in dims
+                    and sizes[x.placements[i].dim] % n == 0), None)
+        if dim is not None:
+            sizes[dim] //= n
+        plan.append(dim)
+    return plan
+
+
+def _placed(plan, dims: dict) -> tuple:
+    """Placements of one tensor under a plan: ``Shard(dims[d])`` on each
+    mesh dim that splits plan dim ``d`` (absent from ``dims``: replicated
+    there)."""
+    from torch.distributed.tensor import Replicate, Shard
+    return tuple(Shard(dims[d]) if d is not None and dims.get(d) is not None
+                 else Replicate() for d in plan)
+
+
+class _ContiguousGrad(torch.autograd.Function):
+    """Identity whose backward makes the gradient contiguous: a local
+    shard's gradient becomes a DTensor's local tensor, and a DTensor's
+    views assume a contiguous one."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad.contiguous()
+
+
+def run_local(fn: Callable, mesh, args: Sequence, in_p: Sequence,
+              out_p: Sequence, out_shapes: Sequence):
+    """``fn`` on the local shards of ``args`` (each taken to its
+    placements in ``in_p``, None for a non-tensor; a plain tensor counts
+    as replicated), its outputs as DTensors of ``out_p`` and global
+    ``out_shapes``: ``to_local`` and ``from_local``, both differentiable."""
+    from torch.distributed.tensor import DTensor, Replicate
+    local = []
+    for a, p in zip(args, in_p):
+        if p is None or a is None:
+            local.append(a)
+            continue
+        if not is_dtensor(a):
+            a = DTensor.from_local(a, mesh, [Replicate()] * mesh.ndim,
+                                   run_check=False)
+        a = redistribute(a, p)
+        local.append(_ContiguousGrad.apply(a.to_local())
+                     if a.requires_grad else a.to_local())
+    out = fn(*local)
+    outs = out if isinstance(out, tuple) else (out,)
+    wrapped = tuple(
+        DTensor.from_local(o.contiguous(), mesh, p, run_check=False,
+                           shape=torch.Size(s), stride=_contiguous(s))
+        for o, p, s in zip(outs, out_p, out_shapes))
+    return wrapped if isinstance(out, tuple) else wrapped[0]
+
+
+def _contiguous(shape) -> tuple:
+    stride, acc = [], 1
+    for n in reversed(shape):
+        stride.append(acc)
+        acc *= n
+    return tuple(reversed(stride))
+
+
+def on_shards(fn: Callable, *args, **kwargs):
+    """``fn`` (a wrapper of this module or its plain version in ``ref``)
+    on the local shards of DTensor arguments; see the module docstring.
+    Returns DTensors on the placements the work was split by."""
+    kind = _KIND[getattr(fn, "__name__", "")]
+    mesh = next(a.device_mesh for a in args + tuple(kwargs.values())
+                if is_dtensor(a))
+    if kind == "attention":
+        # batch, or heads where KV and H both divide (every local query
+        # head keeps its kv head); q's sharding first, then k's
+        q, k, v = args[:3]
+        plan = _plan(mesh, {0: q.shape[0],
+                            2: math.gcd(q.shape[2], k.shape[2])},
+                     [(q, (0, 2)), (k, (0, 2))])
+        p = _placed(plan, {0: 0, 2: 2})
+        return run_local(lambda *t: fn(*t, *args[3:], **kwargs), mesh,
+                         (q, k, v), (p, p, p), (p,), (q.shape,))
+    if kind == "ssd":
+        x, dt, A, Bm, Cm = args
+        init = kwargs.pop("init_state", None)
+        plan = _plan(mesh, {0: x.shape[0], 2: x.shape[2], 3: x.shape[3]},
+                     [(x, (0, 2, 3))])
+        B, nh, hd, ds = x.shape[0], x.shape[2], x.shape[3], Bm.shape[-1]
+        in_p = (_placed(plan, {0: 0, 2: 2, 3: 3}),      # x
+                _placed(plan, {0: 0, 2: 2}),            # dt
+                _placed(plan, {2: 0}),                  # A
+                _placed(plan, {0: 0}),                  # Bm
+                _placed(plan, {0: 0}),                  # Cm
+                _placed(plan, {0: 0, 2: 1, 3: 2}) if init is not None
+                else None)                              # init_state
+        out_p = (in_p[0], _placed(plan, {0: 0, 2: 1, 3: 2}))
+        return run_local(
+            lambda x, dt, A, Bm, Cm, s0: fn(x, dt, A, Bm, Cm, init_state=s0,
+                                            **kwargs),
+            mesh, (x, dt, A, Bm, Cm, init), in_p, out_p,
+            (x.shape, (B, nh, hd, ds)))
+    # quant: rows of x_q or columns of w_q
+    x_q, w_q, x_scale, w_scale = args[:4]
+    plan = _plan(mesh, {0: x_q.shape[0], 1: w_q.shape[1]},
+                 [(x_q, (0,)), (w_q, (1,))])
+    in_p = (_placed(plan, {0: 0}), _placed(plan, {1: 1}),
+            _placed(plan, {0: 0}), _placed(plan, {1: 0}))
+    return run_local(lambda *t: fn(*t, *args[4:], **kwargs), mesh,
+                     (x_q, w_q, x_scale, w_scale), in_p,
+                     (_placed(plan, {0: 0, 1: 1}),),
+                     ((x_q.shape[0], w_q.shape[1]),))
 
 
 def _on_cuda(x: torch.Tensor) -> bool:
@@ -46,6 +185,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True,
                     scale: Optional[float] = None) -> torch.Tensor:
     """[B,Sq,H,hd] x [B,Skv,KV,hd]^2 -> [B,Sq,H,hd] (GQA, un-repeated KV)."""
+    if _sharded(q, k, v):
+        return on_shards(flash_attention, q, k, v, causal=causal, scale=scale)
     if _kernel_path("flash_attention", q, k, v):
         return _flash.flash_attention(q, k, v, causal=causal, scale=scale)
     return ref.flash_attention_ref(q, k, v, causal=causal, scale=scale)
@@ -55,6 +196,9 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                      v_cache: torch.Tensor, cache_len: int, *,
                      scale: Optional[float] = None) -> torch.Tensor:
     """[B,1,H,hd] vs caches [B,S,KV,hd] over ``cache_len`` positions."""
+    if _sharded(q, k_cache, v_cache):
+        return on_shards(decode_attention, q, k_cache, v_cache, cache_len,
+                         scale=scale)
     if _kernel_path("decode_attention", q, k_cache, v_cache):
         return _decode.decode_attention(q, k_cache, v_cache, cache_len,
                                         scale=scale)
@@ -69,6 +213,9 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     """Mamba2 SSD over [B,S,nh,hd] -> (y, final state [B,nh,hd,ds]).
     ``chunk`` sets the plain version's chunk; the kernel walks fixed
     64-row chunks (the result is the same up to rounding)."""
+    if _sharded(x, dt, A, Bm, Cm, init_state):
+        return on_shards(ssd_scan, x, dt, A, Bm, Cm, chunk=chunk,
+                         init_state=init_state)
     if _kernel_path("ssd_scan", x, dt, A, Bm, Cm, init_state):
         return _ssd.ssd_scan(x, dt, A, Bm, Cm, init_state=init_state)
     return ref.ssd_scan_ref(x, dt, A, Bm, Cm, chunk=chunk,
@@ -79,6 +226,9 @@ def quant_matmul(x_q: torch.Tensor, w_q: torch.Tensor, x_scale: torch.Tensor,
                  w_scale: torch.Tensor, *,
                  out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """int8 [M,K] x int8 [K,N] -> ``out_dtype`` [M,N] with row/col scales."""
+    if _sharded(x_q, w_q, x_scale, w_scale):
+        return on_shards(quant_matmul, x_q, w_q, x_scale, w_scale,
+                         out_dtype=out_dtype)
     if _kernel_path("quant_matmul", x_q, w_q, x_scale, w_scale):
         return _qmm.quant_matmul(x_q, w_q, x_scale, w_scale,
                                  out_dtype=out_dtype)
@@ -100,3 +250,11 @@ def quant_linear(x: torch.Tensor, w_q: torch.Tensor,
     x_q, x_scale = ref.quantize_int8(x.reshape(-1, shape[-1]), axis=-1)
     out = quant_matmul(x_q, w_q, x_scale, w_scale, out_dtype=torch.float32)
     return out.reshape(shape[:-1] + (w_q.shape[1],)).to(x.dtype)
+
+
+# which placements each function's work is local on (``on_shards``)
+_KIND = {f.__name__: kind for f, kind in (
+    (flash_attention, "attention"), (ref.flash_attention_ref, "attention"),
+    (decode_attention, "attention"), (ref.decode_attention_ref, "attention"),
+    (ssd_scan, "ssd"), (ref.ssd_scan_ref, "ssd"),
+    (quant_matmul, "quant"), (ref.quant_matmul_ref, "quant"))}

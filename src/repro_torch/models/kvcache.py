@@ -11,16 +11,19 @@ has no use for the stack):
   "ssm": [L x SSMLayerState]}`` with G the number of shared-attention
   applications, each keeping its own KV cache (per Zamba2).
 
-``cache_len`` travels separately as a host int.
+``cache_len`` travels separately as a host int.  Under a sharding
+policy with a mesh the KV caches are DTensors pinned
+``("batch", "cache_seq", "kvheads", None)`` (:func:`cache_specs`).
 """
 from __future__ import annotations
 
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import ssm as ssm_mod
+from repro_torch.sharding.policy import NULL_POLICY, ShardingPolicy
 
 Cache = Dict[str, List]
 
@@ -47,13 +50,34 @@ def init_kv(arch: ArchConfig, batch: int, max_seq: int, dtype: torch.dtype,
 
 
 def init_cache(arch: ArchConfig, batch: int, max_seq: int,
-               dtype: torch.dtype, device: torch.device) -> Cache:
-    """Zeroed caches for ``batch`` sequences of up to ``max_seq`` tokens."""
+               dtype: torch.dtype, device: torch.device,
+               policy: Optional[ShardingPolicy] = None) -> Cache:
+    """Zeroed caches for ``batch`` sequences of up to ``max_seq`` tokens
+    (the KV caches pinned by ``policy`` when it has a mesh)."""
+    policy = policy or NULL_POLICY
     cache = init_kv(arch, batch, max_seq, dtype, device)
+    for name in ("k", "v"):
+        if name in cache:
+            cache[name] = [policy.pin(c, "batch", "cache_seq", "kvheads",
+                                      None) for c in cache[name]]
     if arch.ssm is not None:
         cache["ssm"] = [ssm_mod.init_layer_state(arch, batch, dtype, device)
                         for _ in range(arch.num_layers)]
     return cache
+
+
+def cache_specs(arch: ArchConfig, policy: ShardingPolicy) -> Cache:
+    """Specs of one layer's caches: the reference's ``cache_specs``
+    without the leading ``"layers"`` entry (every entry of a list of
+    per-layer caches has the same spec)."""
+    sp = policy.spec
+    specs: Cache = {}
+    if num_attn_applications(arch):
+        specs["k"] = sp("batch", "cache_seq", "kvheads", None)
+        specs["v"] = sp("batch", "cache_seq", "kvheads", None)
+    if arch.ssm is not None:
+        specs["ssm"] = ssm_mod.state_specs(policy)
+    return specs
 
 
 def cache_bytes(arch: ArchConfig, batch: int, max_seq: int,

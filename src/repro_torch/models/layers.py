@@ -8,8 +8,12 @@ Attention itself lives in ``repro_torch.kernels``.
 """
 from __future__ import annotations
 
+from typing import Callable, Optional
+
 import torch
 import torch.nn.functional as F
+
+from repro_torch.sharding.policy import is_dtensor
 
 
 def upcast(x: torch.Tensor) -> torch.Tensor:
@@ -55,11 +59,15 @@ def repeat_kv(x: torch.Tensor, q_per_kv: int) -> torch.Tensor:
 
 
 def gated_mlp(x: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor,
-              wd: torch.Tensor, activation: str) -> torch.Tensor:
+              wd: torch.Tensor, activation: str,
+              pin: Optional[Callable] = None) -> torch.Tensor:
     """SwiGLU / GeGLU: (act(x@wg) * (x@wu)) @ wd; GeGLU's gelu is the tanh
-    approximation, as ``jax.nn.gelu(approximate=True)``."""
+    approximation, as ``jax.nn.gelu(approximate=True)``.  ``pin``, when
+    given, constrains the sharding of ``x@wg`` (the reference pins it)."""
     g = x @ wg
     u = x @ wu
+    if pin is not None:
+        g = pin(g)
     if activation == "silu":
         g = F.silu(g)
     elif activation == "gelu":
@@ -70,6 +78,15 @@ def gated_mlp(x: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor,
 
 
 def embed(tokens: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """Rows of ``table``.  A DTensor table split over more than one rank
+    goes through ``F.embedding``, whose sharding rule keeps a vocab-sharded
+    table sharded (the result is pending a masked sum: pin it at once);
+    any other table is indexed, whose backward sums a row's gradients in
+    the order the plain model does."""
+    if is_dtensor(table) and any(
+            p.is_shard() and n > 1
+            for p, n in zip(table.placements, table.device_mesh.shape)):
+        return F.embedding(tokens, table)
     return table[tokens]
 
 

@@ -22,11 +22,22 @@ with one KV cache per application.  An MoE model runs groups of
 Parameters are made frozen; ``model.requires_grad_(True)`` makes them
 trainable (``training.train_step`` does).  The serving entry points run
 under ``torch.no_grad()``, so their outputs never carry a graph.
+
+``policy`` (a ``sharding.policy.ShardingPolicy``) pins activations by
+logical axis at the reference's places; ``None`` or a policy without a
+mesh changes nothing.  With a mesh, :meth:`distribute` places each
+parameter as a DTensor per :meth:`param_specs` (after the weights are
+loaded), and the entry points run with plain inputs taken as replicated
+(``implicit_replication``); the kernels run on local shards
+(``kernels.ops.on_shards``).  The layers are one module each, so every
+per-layer spec is the reference's stacked spec without its ``"layers"``
+entry.
 """
 from __future__ import annotations
 
+import contextlib
 from functools import partial
-from typing import Dict, List, Optional, Tuple, Union
+from typing import Any, Dict, List, Optional, Tuple, Union
 
 import torch
 from torch import nn
@@ -37,6 +48,8 @@ from repro_torch.models import kvcache, layers
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models import transformer as tfm
+from repro_torch.sharding.policy import (NULL_POLICY, PartitionSpec,
+                                         ShardingPolicy)
 
 NUM_FRONTEND_POSITIONS = 64
 LOSS_IGNORE = -1
@@ -78,13 +91,17 @@ class Model(nn.Module):
     (``models.moe.DISPATCHES``).  ``remat`` (``REMATS``, the reference's)
     recomputes each block in the backward pass under autograd: all of it
     (``"full"``) or all but its ``x @ w`` products (``"dots"``).  The CUDA
-    kernels have no backward: training runs ``impl="plain"``."""
+    kernels have no backward: training runs ``impl="plain"``.  ``policy``
+    (default none) shards the model over its mesh (module docstring); a
+    mesh of another device type than ``device`` raises (a ``meta`` model,
+    shapes and specs alone, takes any mesh)."""
 
     def __init__(self, arch: ArchConfig,
                  device: Union[str, torch.device] = "cuda",
                  dtype: torch.dtype = torch.bfloat16,
                  impl: str = "kernel", moe_dispatch: str = "auto",
-                 remat: str = "none"):
+                 remat: str = "none",
+                 policy: Optional[ShardingPolicy] = None):
         super().__init__()
         if arch.family not in FAMILIES:
             raise ValueError(f"{arch.name}: unknown family {arch.family!r}")
@@ -101,6 +118,13 @@ class Model(nn.Module):
         self.impl = impl
         self.moe_dispatch = moe_dispatch
         self.remat = remat
+        self.policy = policy if policy is not None else NULL_POLICY
+        mesh = self.policy.mesh
+        if (mesh is not None and self.device.type != "meta"
+                and mesh.device_type != self.device.type):
+            raise ValueError(f"{arch.name}: the policy's mesh is on "
+                             f"{mesh.device_type!r}, the model on "
+                             f"{self.device.type!r}")
         d, V = arch.d_model, arch.vocab_size
 
         def param(*shape):
@@ -139,6 +163,83 @@ class Model(nn.Module):
         application: ``(g * attn_every, min((g + 1) * attn_every, L))``."""
         ae, L = self.arch.hybrid.attn_every, self.arch.num_layers
         return [(g * ae, min((g + 1) * ae, L)) for g in range(-(-L // ae))]
+
+    # ------------------------------------------------------------------
+    @property
+    def sharded(self) -> bool:
+        """Whether the policy has a mesh."""
+        return self.policy.mesh is not None
+
+    def param_specs(self) -> Dict[str, Any]:
+        """The reference's ``Model.param_specs`` tree, each block's specs
+        per layer (without the ``"layers"`` entry)."""
+        arch, pol = self.arch, self.policy
+        sp = pol.spec
+        specs: Dict[str, Any] = {"embed": sp("vocab", "embed"),
+                                 "final_norm": sp(None)}
+        if not arch.tie_embeddings:
+            specs["lm_head"] = sp("embed", "vocab")
+        if arch.family == "moe":
+            body = {"moe": {**tfm.attn_specs(arch, pol),
+                            **moe_mod.moe_specs(arch, pol)}}
+            if self.moe_group[1]:
+                body["dense"] = tfm.dense_block_specs(arch, pol)
+            specs["blocks"] = body
+        elif arch.ssm is not None:
+            specs["blocks"] = ssm_mod.ssm_specs(arch, pol)
+        else:
+            specs["blocks"] = tfm.dense_block_specs(arch, pol)
+        if arch.family == "hybrid":
+            specs["shared_attn"] = tfm.dense_block_specs(arch, pol)
+        return specs
+
+    def named_param_specs(self) -> Dict[str, PartitionSpec]:
+        """Parameter name (``named_parameters``) -> its spec."""
+        specs = self.param_specs()
+        out = {k: specs[k] for k in ("embed", "final_norm", "lm_head")
+               if k in specs}
+        for i, blk in enumerate(self.blocks):
+            table = specs["blocks"]
+            if self.arch.family == "moe":
+                table = (table["moe"] if isinstance(blk, moe_mod.MoEBlock)
+                         else table["dense"])
+            out.update({f"blocks.{i}.{n}": table[n]
+                        for n, _ in blk.named_parameters()})
+        if self.arch.family == "hybrid":
+            out.update({f"shared_attn.{n}": specs["shared_attn"][n]
+                        for n, _ in self.shared_attn.named_parameters()})
+        return out
+
+    def cache_specs(self) -> kvcache.Cache:
+        return kvcache.cache_specs(self.arch, self.policy)
+
+    @torch.no_grad()
+    def distribute(self) -> "Model":
+        """Each parameter as a DTensor on the policy's mesh, placed per
+        :meth:`named_param_specs` (``distribute_tensor`` from rank 0's
+        values); a no-op without a mesh or when already placed."""
+        if not self.sharded:
+            return self
+        from torch.distributed.tensor import DTensor, distribute_tensor
+        mesh, specs = self.policy.mesh, self.named_param_specs()
+        for name, p in list(self.named_parameters()):
+            if isinstance(p, DTensor):
+                continue
+            owner, _, leaf = name.rpartition(".")
+            module = self.get_submodule(owner) if owner else self
+            placed = distribute_tensor(
+                p.detach(), mesh, self.policy.placements_of(specs[name]))
+            module.register_parameter(leaf, nn.Parameter(
+                placed, requires_grad=p.requires_grad))
+        return self
+
+    def on_mesh(self):
+        """The context the entry points run in: under a mesh, plain
+        tensors (tokens, positions, masks) count as replicated."""
+        if not self.sharded:
+            return contextlib.nullcontext()
+        from torch.distributed.tensor.experimental import implicit_replication
+        return implicit_replication()
 
     # ------------------------------------------------------------------
     @torch.no_grad()
@@ -187,14 +288,16 @@ class Model(nn.Module):
                      frontend_embeds: Optional[torch.Tensor]) -> torch.Tensor:
         h = layers.embed(tokens, self.embed).to(self.dtype)
         if frontend_embeds is not None:
+            h = self.policy.pin(h, "batch", "seq", None)
             P = frontend_embeds.shape[1]
             h = torch.cat([frontend_embeds.to(h.dtype), h[:, P:]], dim=1)
-        return h
+        return self.policy.pin(h, "batch", "seq", None)
 
     def head(self, h: torch.Tensor) -> torch.Tensor:
         h = layers.rms_norm(h, self.final_norm, self.arch.norm_eps)
         table = self.embed.T if self.arch.tie_embeddings else self.lm_head
-        return layers.logits(h, table)
+        return self.policy.pin(layers.logits(h, table),
+                               "batch", "seq", "vocab")
 
     def _positions(self, B: int, S: int) -> torch.Tensor:
         return torch.arange(S, dtype=torch.int32,
@@ -218,10 +321,10 @@ class Model(nn.Module):
         ``kv_seq`` the KV caches are zero-padded to ``kv_seq`` positions,
         without it they hold S; SSM states are per sequence, never padded.
         ``want_cache=False`` keeps nothing (the cache comes back empty)."""
-        arch = self.arch
+        arch, pol = self.arch, self.policy
         B, S = h.shape[:2]
         positions = self._positions(B, S)
-        if kv_seq is not None:
+        if kv_seq is not None and not self.sharded:
             cache = kvcache.init_kv(arch, B, kv_seq, self.dtype, self.device)
         elif kvcache.num_attn_applications(arch):
             cache = {"k": [], "v": []}
@@ -234,11 +337,18 @@ class Model(nn.Module):
             if isinstance(blk, moe_mod.MoEBlock):
                 h, (k, v) = self._block(
                     moe_mod.moe_block_full, h, blk, arch, positions,
-                    self.impl, self.moe_dispatch)
+                    self.impl, self.moe_dispatch, pol)
             else:
                 h, (k, v) = self._block(tfm.dense_block_full, h, blk, arch,
-                                        positions, self.impl)
-            if kv_seq is not None:
+                                        positions, self.impl, pol)
+            if kv_seq is not None and self.sharded:
+                # the reference pads the prefill's K/V to max_seq, then
+                # the decode steps pin the cache on cache_seq
+                for name, t in (("k", k), ("v", v)):
+                    cache[name].append(pol.pin(
+                        nn.functional.pad(t, (0, 0, 0, 0, 0, kv_seq - S)),
+                        "batch", "cache_seq", "kvheads", None))
+            elif kv_seq is not None:
                 cache["k"][i][:, :S] = k
                 cache["v"][i][:, :S] = v
             elif want_cache:
@@ -249,7 +359,7 @@ class Model(nn.Module):
         def mamba(h, lo, hi):
             for blk in self.blocks[lo:hi]:
                 h, state = self._block(ssm_mod.ssm_block_full, h, blk,
-                                       arch, None, self.impl)
+                                       arch, None, self.impl, pol)
                 if want_cache:
                     cache["ssm"].append(state)
             return h
@@ -266,9 +376,10 @@ class Model(nn.Module):
 
     def _logits(self, tokens: torch.Tensor,
                 frontend_embeds: Optional[torch.Tensor]) -> torch.Tensor:
-        h, _ = self._body_full(self.embed_inputs(tokens, frontend_embeds),
-                               want_cache=False)
-        return self.head(h)
+        with self.on_mesh():
+            h, _ = self._body_full(self.embed_inputs(tokens, frontend_embeds),
+                                   want_cache=False)
+            return self.head(h)
 
     @torch.no_grad()
     def forward(self, tokens: torch.Tensor,
@@ -284,11 +395,14 @@ class Model(nn.Module):
         ``batch``: ``tokens`` and ``labels`` [B, S] (integer), and
         ``frontend_embeds`` for a vlm/audio arch, on the model's device."""
         logits = self._logits(batch["tokens"], batch.get("frontend_embeds"))
-        labels = batch["labels"].long()
-        lse = torch.logsumexp(logits, dim=-1)
-        ll = logits.gather(-1, labels.clamp_min(0)[..., None])[..., 0]
-        mask = (labels != LOSS_IGNORE).to(logits.dtype)
-        return ((lse - ll) * mask).sum() / mask.sum().clamp_min(1.0)
+        with self.on_mesh():
+            labels = batch["labels"].long()
+            lse = torch.logsumexp(logits, dim=-1)
+            ll = logits.gather(-1, labels.clamp_min(0)[..., None])
+            # on vocab-sharded logits the gather is a pending masked sum
+            ll = self.policy.pin(ll, "batch", "seq", None)[..., 0]
+            mask = (labels != LOSS_IGNORE).to(logits.dtype)
+            return ((lse - ll) * mask).sum() / mask.sum().clamp_min(1.0)
 
     @torch.no_grad()
     def prefill(self, tokens: torch.Tensor,
@@ -300,10 +414,11 @@ class Model(nn.Module):
         ``max_seq`` positions, ready for ``decode_step``; without it they
         hold S."""
         S = tokens.shape[1]
-        h = self.embed_inputs(tokens, frontend_embeds)
-        pad = max_seq is not None and max_seq > S
-        h, cache = self._body_full(h, max_seq if pad else None)
-        return self.head(h[:, -1:]), cache
+        with self.on_mesh():
+            h = self.embed_inputs(tokens, frontend_embeds)
+            pad = max_seq is not None and max_seq > S
+            h, cache = self._body_full(h, max_seq if pad else None)
+            return self.head(h[:, -1:]), cache
 
     @torch.no_grad()
     def decode_step(self, cache: kvcache.Cache, cache_len: int,
@@ -313,22 +428,28 @@ class Model(nn.Module):
         tokens: [B, 1].  Returns (logits [B,1,V], cache); the KV caches are
         written in place and each layer's SSM state is replaced in its
         list."""
-        arch = self.arch
+        with self.on_mesh():
+            return self._decode(cache, cache_len, tokens)
+
+    def _decode(self, cache: kvcache.Cache, cache_len: int,
+                tokens: torch.Tensor) -> Tuple[torch.Tensor, kvcache.Cache]:
+        arch, pol = self.arch, self.policy
         h = layers.embed(tokens, self.embed).to(self.dtype)
+        h = pol.pin(h, "batch", None, None)
 
         def attend(h, blk, i):
             if isinstance(blk, moe_mod.MoEBlock):
                 return moe_mod.moe_block_decode(
                     h, blk, arch, cache["k"][i], cache["v"][i], cache_len,
-                    self.impl, self.moe_dispatch)
+                    self.impl, self.moe_dispatch, pol)
             return tfm.dense_block_decode(h, blk, arch, cache["k"][i],
                                           cache["v"][i], cache_len,
-                                          self.impl)
+                                          self.impl, pol)
 
         def mamba(h, lo, hi):
             for i in range(lo, hi):
                 h, cache["ssm"][i] = ssm_mod.ssm_block_decode(
-                    h, self.blocks[i], arch, cache["ssm"][i])
+                    h, self.blocks[i], arch, cache["ssm"][i], pol)
             return h
 
         if arch.family == "ssm":
@@ -343,4 +464,4 @@ class Model(nn.Module):
 
     def init_cache(self, batch: int, max_seq: int) -> kvcache.Cache:
         return kvcache.init_cache(self.arch, batch, max_seq, self.dtype,
-                                  self.device)
+                                  self.device, self.policy)

@@ -14,9 +14,16 @@ dispatch is the sort-free *rank-in-expert* scatter into capacity buffers.
 
 ``"grouped"`` dispatch (the default) takes each batch row as a group,
 ``"global"`` takes all B*S tokens as one; a batch of one always dispatches
-globally, and ``"auto"`` is ``"grouped"`` on one device (the reference
-picks ``"global"`` only when the sequence is sharded).  Nothing here reads
-a value back to the host.
+globally, and ``"auto"`` is ``"global"`` only when the policy shards the
+sequence, as the reference picks it.  Nothing here reads a value back to
+the host.
+
+Under a policy with a mesh the reference's pins apply: tokens pinned by
+group, the capacity buffer moved from group-sharded to expert-sharded for
+the expert products (DTensor matmuls on expert-parallel weights), and back.
+DTensor has no sharding rule for the rank cumsum and the capacity scatter
+and gather, so routing + scatter and the combine run on local shards
+(``kernels.ops.run_local``) over placements on which each group is whole.
 
 The expert products are plain batched matrix products (``torch.matmul`` on
 ``[E, rows, d]`` stacks), as the reference computes them with einsums
@@ -31,8 +38,11 @@ import torch
 from torch import nn
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.kernels import ops
 from repro_torch.models import layers
 from repro_torch.models import transformer as tfm
+from repro_torch.sharding.policy import (NULL_POLICY, PartitionSpec,
+                                         ShardingPolicy)
 
 DISPATCHES = ("auto", "grouped", "global")
 EXPERT_WEIGHTS = ("we_g", "we_u", "we_d")   # [E, ...]: drawn one at a time
@@ -57,6 +67,25 @@ def moe_shapes(arch: ArchConfig) -> Dict[str, Tuple[int, ...]]:
     if m.shared_expert:
         shapes.update(ws_g=(d, fe), ws_u=(d, fe), ws_d=(fe, d))
     return shapes
+
+
+def moe_specs(arch: ArchConfig, policy: ShardingPolicy
+              ) -> Dict[str, PartitionSpec]:
+    """Specs of one layer's MoE parameters: the reference's ``moe_specs``
+    without its leading ``"layers"`` entry."""
+    sp = policy.spec
+    p = {
+        "moe_norm": sp(None),
+        "router": sp("embed", None),
+        "we_g": sp("experts", "expert_embed", "expert_ff"),
+        "we_u": sp("experts", "expert_embed", "expert_ff"),
+        "we_d": sp("experts", "expert_ff", "expert_embed"),
+    }
+    if arch.moe.shared_expert:
+        p["ws_g"] = sp("embed", "ff")
+        p["ws_u"] = sp("embed", "ff")
+        p["ws_d"] = sp("ff", "embed")
+    return p
 
 
 def init_scale(arch: ArchConfig, name: str) -> float:
@@ -111,22 +140,31 @@ def _ranks(idx: torch.Tensor, E: int) -> torch.Tensor:
     return (rank * flat).sum(-1)
 
 
-def _expert_ffn(xb: torch.Tensor, blk: MoEBlock,
-                arch: ArchConfig) -> torch.Tensor:
+class _Router(NamedTuple):
+    """A block's router alone (what :func:`_route` reads)."""
+    router: torch.Tensor
+
+
+def _expert_ffn(xb: torch.Tensor, blk: MoEBlock, arch: ArchConfig,
+                policy: ShardingPolicy = NULL_POLICY,
+                groups: Optional[str] = None) -> torch.Tensor:
     """Batched expert MLP over the leading E dim: xb [E, ..., d] (the extra
-    dims fold into the rows of each expert's product)."""
+    dims fold into the rows of each expert's product).  ``groups`` is the
+    logical axis of the rows (their group-major order), for the pins."""
     E, d = xb.shape[0], xb.shape[-1]
-    y = layers.gated_mlp(xb.reshape(E, -1, d), blk.we_g, blk.we_u, blk.we_d,
-                         arch.mlp_activation)
-    return y.reshape(xb.shape)
+    y = layers.gated_mlp(
+        xb.reshape(E, -1, d), blk.we_g, blk.we_u, blk.we_d,
+        arch.mlp_activation,
+        pin=lambda g: policy.pin(g, "experts", groups, "expert_ff"))
+    return policy.pin(y.reshape(xb.shape), "experts", groups,
+                      *(None,) * (xb.dim() - 2))
 
 
-def _dispatch_grouped(x: torch.Tensor, blk: MoEBlock, arch: ArchConfig,
-                      routes: Optional[List[Routes]] = None) -> torch.Tensor:
-    """Per-group dispatch: x [G, N, d] -> [G, N, d], each batch row a group
-    (G = B).  Per group, the capacity is :func:`capacity` of N, ranks run
-    over the group's own (token, k) order, and dropped rows write zeros to
-    the sentinel row ``E*cap``."""
+def _scatter(x: torch.Tensor, blk, arch: ArchConfig,
+             routes: Optional[List[Routes]] = None):
+    """Routing and the capacity scatter of x [G, N, d]: (the buffer
+    [G, E, cap, d], each (token, k)'s slot [G, N*K], and its weight, the
+    gate where kept and 0 where dropped, in x's dtype)."""
     m = arch.moe
     G, N, d = x.shape
     E, K = m.num_experts, m.experts_per_token
@@ -144,64 +182,132 @@ def _dispatch_grouped(x: torch.Tensor, blk: MoEBlock, arch: ArchConfig,
     at = slot.unsqueeze(-1).expand(G, N * K, d)
     buf = x.new_zeros(G, E * cap + 1, d).scatter_(
         1, at, torch.where(keep.unsqueeze(-1), xk, 0))
-    xe = buf[:, :E * cap].reshape(G, E, cap, d).transpose(0, 1)
+    weight = (keep * gate.reshape(G, N * K)).to(x.dtype)
+    return buf[:, :E * cap].reshape(G, E, cap, d), slot, weight
 
-    ye = _expert_ffn(xe, blk, arch)                         # [E, G, cap, d]
 
-    ybuf = torch.cat([ye.transpose(0, 1).reshape(G, E * cap, d),
-                      x.new_zeros(G, 1, d)], dim=1)
-    yk = torch.gather(ybuf, 1, at)
-    yk = yk * (keep * gate.reshape(G, N * K)).to(x.dtype).unsqueeze(-1)
-    return yk.reshape(G, N, K, d).sum(2)
+def _combine(yb: torch.Tensor, slot: torch.Tensor,
+             weight: torch.Tensor) -> torch.Tensor:
+    """The experts' rows [G, E, cap, d] gathered back through the slots
+    (the sentinel slot reads zeros), scaled by the weights -> [G, N*K, d]
+    in (token, k) order."""
+    G, E, cap, d = yb.shape
+    NK = slot.shape[1]
+    ybuf = torch.cat([yb.reshape(G, E * cap, d), yb.new_zeros(G, 1, d)],
+                     dim=1)
+    yk = torch.gather(ybuf, 1, slot.unsqueeze(-1).expand(G, NK, d))
+    return yk * weight.unsqueeze(-1)
+
+
+def _dispatch_grouped(x: torch.Tensor, blk: MoEBlock, arch: ArchConfig,
+                      routes: Optional[List[Routes]] = None,
+                      policy: ShardingPolicy = NULL_POLICY,
+                      grouped: bool = True) -> torch.Tensor:
+    """Per-group dispatch: x [G, N, d] -> [G, N, d], each batch row a group
+    (G = B).  Per group, the capacity is :func:`capacity` of N, ranks run
+    over the group's own (token, k) order, and dropped rows write zeros to
+    the sentinel row ``E*cap``.  Under a mesh (``grouped=False``: the
+    global dispatch, one replicated group) the reference's pins apply."""
+    K = arch.moe.experts_per_token
+    G, N, d = x.shape
+    if policy.mesh is None:
+        xb, slot, weight = _scatter(x, blk, arch, routes)
+        ye = _expert_ffn(xb.transpose(0, 1), blk, arch)     # [E, G, cap, d]
+        return _combine(ye.transpose(0, 1), slot, weight).reshape(
+            G, N, K, d).sum(2)
+    mesh = policy.mesh
+    x = policy.pin(x, "batch" if grouped else None, None, None)
+    p = tuple(x.placements)
+    from torch.distributed.tensor import Replicate
+    full = (Replicate(),) * mesh.ndim
+    E, cap = arch.moe.num_experts, capacity(arch, N)
+    xb, slot, weight = ops.run_local(
+        lambda xl, r: _scatter(xl, _Router(r), arch), mesh,
+        (x, blk.router), (p, full), (p, p, p),
+        ((G, E, cap, d), (G, N * K), (G, N * K)))
+    if grouped:
+        xb = policy.pin(xb, "token_groups", None, None, None)
+    xe = policy.pin(xb.transpose(0, 1), "experts",
+                    "token_groups_data" if grouped else None, None, None)
+    ye = _expert_ffn(xe, blk, arch, policy,
+                     "token_groups_data" if grouped else None)
+    yb = ye.transpose(0, 1)
+    if grouped:
+        yb = policy.pin(yb, "token_groups", None, None, None)
+    q = tuple(yb.placements) if grouped else full
+    y = ops.run_local(_combine, mesh, (yb, slot, weight), (q, q, q), (q,),
+                      ((G, N * K, d),))
+    return y.reshape(G, N, K, d).sum(2)
 
 
 def _dispatch_global(x: torch.Tensor, blk: MoEBlock, arch: ArchConfig,
-                     routes: Optional[List[Routes]] = None) -> torch.Tensor:
+                     routes: Optional[List[Routes]] = None,
+                     policy: ShardingPolicy = NULL_POLICY) -> torch.Tensor:
     """Single-group dispatch over N = B*S tokens: x [N, d] -> [N, d], the
     grouped dispatch of one group."""
-    return _dispatch_grouped(x.unsqueeze(0), blk, arch, routes)[0]
+    return _dispatch_grouped(x.unsqueeze(0), blk, arch, routes, policy,
+                             grouped=False)[0]
 
 
-def _shared_expert(hn: torch.Tensor, blk: MoEBlock,
-                   arch: ArchConfig) -> torch.Tensor:
+def _shared_expert(hn: torch.Tensor, blk: MoEBlock, arch: ArchConfig,
+                   policy: ShardingPolicy = NULL_POLICY) -> torch.Tensor:
     """The shared expert on the normed input."""
-    return layers.gated_mlp(hn, blk.ws_g, blk.ws_u, blk.ws_d,
-                            arch.mlp_activation)
+    return layers.gated_mlp(
+        hn, blk.ws_g, blk.ws_u, blk.ws_d, arch.mlp_activation,
+        pin=lambda g: policy.pin(g, "batch", "seq", "ff"))
 
 
 def moe_mlp(h: torch.Tensor, blk: MoEBlock, arch: ArchConfig,
             dispatch: str = "grouped",
-            routes: Optional[List[Routes]] = None) -> torch.Tensor:
+            routes: Optional[List[Routes]] = None,
+            policy: Optional[ShardingPolicy] = None) -> torch.Tensor:
     """[B, S, d] -> [B, S, d]: top-k routed experts (+ the shared expert)
     on ``rms_norm(h, moe_norm)``.  ``routes``, when given, receives this
-    layer's :class:`Routes` (device tensors; nothing is synchronised)."""
+    layer's :class:`Routes` (device tensors; nothing is synchronised;
+    not under a mesh)."""
+    policy = policy or NULL_POLICY
     B, S, d = h.shape
     hn = layers.rms_norm(h, blk.moe_norm, arch.norm_eps)
+    if dispatch == "auto":
+        dispatch = "global" if policy.rules.get("seq") else "grouped"
     if dispatch == "global" or B == 1:
-        y = _dispatch_global(hn.reshape(B * S, d), blk, arch,
-                             routes).reshape(B, S, d)
-    else:                       # "auto" on one device: no sequence sharding
-        y = _dispatch_grouped(hn, blk, arch, routes)
+        y = _dispatch_global(hn.reshape(B * S, d), blk, arch, routes,
+                             policy).reshape(B, S, d)
+    else:
+        y = _dispatch_grouped(hn, blk, arch, routes, policy)
     if arch.moe.shared_expert:
-        y = y + _shared_expert(hn, blk, arch)
+        y = y + _shared_expert(hn, blk, arch, policy)
     return y
+
+
+def _mlp(h, blk, arch, dispatch, policy: ShardingPolicy):
+    """:func:`moe_mlp` as the blocks call it: the policy is passed only
+    when it has a mesh, so a wrapper of the four-argument call (a route
+    log) sees the call it wraps."""
+    if policy.mesh is None:
+        return moe_mlp(h, blk, arch, dispatch)
+    return moe_mlp(h, blk, arch, dispatch, policy=policy)
 
 
 def moe_block_full(h: torch.Tensor, blk: MoEBlock, arch: ArchConfig,
                    positions: torch.Tensor, impl: str = "kernel",
-                   dispatch: str = "grouped"):
+                   dispatch: str = "grouped",
+                   policy: Optional[ShardingPolicy] = None):
     """Attention + MoE MLP block, full-sequence mode.  Returns (h, (k, v))."""
-    a, kv = tfm.attention_full(h, blk, arch, positions, impl)
+    policy = policy or NULL_POLICY
+    a, kv = tfm.attention_full(h, blk, arch, positions, impl, policy)
     h = h + a
-    return h + moe_mlp(h, blk, arch, dispatch), kv
+    h = h + _mlp(h, blk, arch, dispatch, policy)
+    return policy.pin(h, "batch", "seq", None), kv
 
 
 def moe_block_decode(h: torch.Tensor, blk: MoEBlock, arch: ArchConfig,
                      k_cache: torch.Tensor, v_cache: torch.Tensor,
                      cache_len: int, impl: str = "kernel",
-                     dispatch: str = "grouped") -> torch.Tensor:
+                     dispatch: str = "grouped",
+                     policy: Optional[ShardingPolicy] = None) -> torch.Tensor:
     """Attention + MoE MLP block for one token; updates the caches in
     place."""
     h = h + tfm.attention_decode(h, blk, arch, k_cache, v_cache, cache_len,
-                                 impl)
-    return h + moe_mlp(h, blk, arch, dispatch)
+                                 impl, policy)
+    return h + _mlp(h, blk, arch, dispatch, policy or NULL_POLICY)

@@ -12,6 +12,7 @@ in plain PyTorch: the JAX package has no kernel for that step either.
 """
 from __future__ import annotations
 
+from functools import partial
 from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
@@ -21,6 +22,8 @@ from torch import nn
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels import ops, ref
 from repro_torch.models import layers
+from repro_torch.sharding.policy import (NULL_POLICY, PartitionSpec,
+                                         ShardingPolicy)
 
 _FP32 = ("A_log", "dt_bias")     # kept fp32 in a bf16 model
 
@@ -43,6 +46,41 @@ def block_shapes(arch: ArchConfig) -> Dict[str, Tuple[int, ...]]:
             "conv_x": (cw, nh, hd), "conv_B": (cw, ds), "conv_C": (cw, ds),
             "A_log": (nh,), "dt_bias": (nh,), "D": (nh,),
             "gate_norm": (nh, hd), "wo": (nh, hd, d)}
+
+
+def ssm_specs(arch: ArchConfig, policy: ShardingPolicy
+              ) -> Dict[str, PartitionSpec]:
+    """Specs of one Mamba2 layer's parameters: the reference's
+    ``ssm_specs`` without its leading ``"layers"`` entry."""
+    sp = policy.spec
+    return {
+        "ssm_norm": sp(None),
+        "wz": sp("embed", "ssm_heads", "ssm_pdim"),
+        "wx": sp("embed", "ssm_heads", "ssm_pdim"),
+        "wB": sp("embed", None),
+        "wC": sp("embed", None),
+        "wdt": sp("embed", None),
+        "conv_x": sp(None, "ssm_heads", "ssm_pdim"),
+        "conv_B": sp(None, None),
+        "conv_C": sp(None, None),
+        "A_log": sp(None),
+        "dt_bias": sp(None),
+        "D": sp(None),
+        "gate_norm": sp("ssm_heads", "ssm_pdim"),
+        "wo": sp("ssm_heads", "ssm_pdim", "embed"),
+    }
+
+
+def state_specs(policy: ShardingPolicy) -> "SSMLayerState":
+    """Specs of one layer's decode state (the reference's ``state_specs``
+    unstacked)."""
+    sp = policy.spec
+    return SSMLayerState(
+        ssd=sp("batch", "ssm_heads", "ssm_pdim", None),
+        conv_x=sp("batch", None, "ssm_heads", "ssm_pdim"),
+        conv_B=sp("batch", None, None),
+        conv_C=sp("batch", None, None),
+    )
 
 
 def init_scale(arch: ArchConfig, name: str) -> float:
@@ -123,12 +161,14 @@ def ssd_step(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
 
 
 def _gated_out(y: torch.Tensor, z: torch.Tensor, p: SSMBlock,
-               arch: ArchConfig) -> torch.Tensor:
+               arch: ArchConfig,
+               policy: ShardingPolicy = NULL_POLICY) -> torch.Tensor:
     """Gated RMSNorm (scaled by ``1 + gate_norm``) and the out-projection.
     y (fp32), z: [B, S, nh, hd] -> [B, S, d]."""
     y = y * F.silu(layers.upcast(z))
     y = y * torch.rsqrt(y.square().mean(-1, keepdim=True) + arch.norm_eps)
     y = (y * (1.0 + p.gate_norm.to(y.dtype))).to(z.dtype)
+    y = policy.pin(y, "batch", "seq", "ssm_heads", "ssm_pdim")
     return y.flatten(2) @ p.wo.flatten(0, 1)
 
 
@@ -145,15 +185,19 @@ def _project(hn: torch.Tensor, p: SSMBlock, arch: ArchConfig):
 
 def ssm_block_full(h: torch.Tensor, p: SSMBlock, arch: ArchConfig,
                    init_state: Optional[SSMLayerState] = None,
-                   impl: str = "kernel"
+                   impl: str = "kernel",
+                   policy: Optional[ShardingPolicy] = None
                    ) -> Tuple[torch.Tensor, SSMLayerState]:
     """Full-sequence Mamba2 block.  Returns (h + out, the state to decode
     from: the final SSD state and the last ``cw - 1`` pre-activation conv
     inputs, left-padded with zeros when S < cw - 1)."""
+    policy = policy or NULL_POLICY
     s = arch.ssm
     S = h.shape[1]
     hn = layers.rms_norm(h, p.ssm_norm, arch.norm_eps)
     z, x_pre, B_pre, C_pre, dt = _project(hn, p, arch)
+    x_pre = policy.pin(x_pre, "batch", "seq", "ssm_heads", "ssm_pdim")
+    z = policy.pin(z, "batch", "seq", "ssm_heads", "ssm_pdim")
 
     x = F.silu(causal_shift_conv(x_pre, p.conv_x))
     Bm = F.silu(causal_shift_conv(B_pre, p.conv_B))
@@ -163,11 +207,13 @@ def ssm_block_full(h: torch.Tensor, p: SSMBlock, arch: ArchConfig,
     A = -torch.exp(p.A_log)
     s0 = init_state.ssd if init_state is not None else None
     scan = ops.ssd_scan if impl == "kernel" else ref.ssd_scan_ref
+    if impl != "kernel" and policy.mesh is not None:
+        scan = partial(ops.on_shards, ref.ssd_scan_ref)
     x = layers.upcast(x)
     y, final = scan(x, dt, A, layers.upcast(Bm), layers.upcast(Cm),
                     chunk=s.chunk_size, init_state=s0)
     y = y + x * p.D.to(x.dtype)[:, None]
-    out = _gated_out(y, z, p, arch)
+    out = _gated_out(y, z, p, arch, policy)
 
     cw = s.conv_width
 
@@ -181,10 +227,12 @@ def ssm_block_full(h: torch.Tensor, p: SSMBlock, arch: ArchConfig,
 
 
 def ssm_block_decode(h: torch.Tensor, p: SSMBlock, arch: ArchConfig,
-                     state: SSMLayerState
+                     state: SSMLayerState,
+                     policy: Optional[ShardingPolicy] = None
                      ) -> Tuple[torch.Tensor, SSMLayerState]:
     """One-token Mamba2 step against the recurrent state.  h: [B, 1, d].
     Returns (h + out, the new state)."""
+    policy = policy or NULL_POLICY
     hn = layers.rms_norm(h, p.ssm_norm, arch.norm_eps)[:, 0]     # [B, d]
     z, x_new, B_new, C_new, dt = _project(hn, p, arch)
 
@@ -203,6 +251,6 @@ def ssm_block_decode(h: torch.Tensor, p: SSMBlock, arch: ArchConfig,
     y, ssd = ssd_step(x, dt, A, layers.upcast(Bm), layers.upcast(Cm),
                       state.ssd)
     y = y + x * p.D.to(x.dtype)[:, None]
-    out = _gated_out(y[:, None], z[:, None], p, arch)
+    out = _gated_out(y[:, None], z[:, None], p, arch, policy)
     return h + out, SSMLayerState(ssd=ssd, conv_x=conv_x, conv_B=conv_B,
                                   conv_C=conv_C)

@@ -13,6 +13,13 @@ first call, and the prefill's cache is copied into the graphs' static
 cache.  Elsewhere (the CPU, the SSM and hybrid families) the cache is
 padded to ``max_seq`` at prefill and every decode step runs eagerly,
 updating it in place.
+
+Under a sharding policy with a mesh (the model's ``policy``) the engine
+places the model's parameters per ``param_specs`` (``Model.distribute``),
+as the reference's engine jits its prefill with those shardings, and
+decodes eagerly: ``GraphedDecode``'s captured segments and static buffers
+hold plain tensors, not DTensors.  ``decode_mode`` says which ran.  The
+greedy tokens are gathered to every rank (``full_tensor``) each step.
 """
 from __future__ import annotations
 
@@ -25,6 +32,7 @@ import torch
 from repro_torch.models import kvcache
 from repro_torch.models.graphed import GraphedDecode
 from repro_torch.models.model import DENSE_FAMILIES, Model
+from repro_torch.sharding.policy import whole
 
 
 @dataclasses.dataclass
@@ -38,16 +46,25 @@ class Engine:
     the model's device."""
 
     def __init__(self, model: Model, cfg: EngineConfig):
-        self.model = model
+        self.model = model.distribute()
         self.cfg = cfg
         self._graphed: Optional[GraphedDecode] = None
+
+    @property
+    def decode_mode(self) -> str:
+        """``"graphed"`` where a dense model on a card decodes through
+        ``GraphedDecode``, ``"eager (mesh)"`` where it would but its policy
+        has a mesh, ``"eager"`` elsewhere."""
+        m = self.model
+        if m.device.type != "cuda" or m.arch.family not in DENSE_FAMILIES:
+            return "eager"
+        return "eager (mesh)" if m.sharded else "graphed"
 
     def _decoder(self) -> Optional[GraphedDecode]:
         """The graphed decode of a dense model on a card (captured for
         every batch size on first use); None elsewhere."""
         m = self.model
-        if (self._graphed is None and m.device.type == "cuda"
-                and m.arch.family in DENSE_FAMILIES):
+        if self._graphed is None and self.decode_mode == "graphed":
             self._graphed = GraphedDecode(m, self.cfg.max_batch,
                                           self.cfg.max_seq)
             self._graphed.capture_all()
@@ -86,7 +103,7 @@ class Engine:
         tokens = torch.as_tensor(np.asarray(prompts, np.int64),
                                  device=self.model.device)
         logits, cache = self.prefill(tokens)
-        tok = logits[:, -1].argmax(-1, keepdim=True)
+        tok = whole(logits[:, -1].argmax(-1, keepdim=True))
         out = np.zeros((B, max_new), np.int32)
         done = np.zeros((B,), bool)
         steps: List[torch.Tensor] = []
@@ -102,7 +119,7 @@ class Engine:
             if i == max_new - 1:
                 break
             logits, cache = self.decode_step(cache, S + i, tok)
-            tok = logits[:, -1].argmax(-1, keepdim=True)
+            tok = whole(logits[:, -1].argmax(-1, keepdim=True))
         if steps:
             out[:, :len(steps)] = torch.cat(steps, dim=1).cpu().numpy()
         return out

@@ -2,5 +2,5 @@
 ``repro.training``): the deterministic data pipeline (``data``), AdamW
 with fp32 master weights (``optimizer``), int8 error-feedback gradient
 compression (``compression``), the training step (``train_step``) and
-atomic checkpoints in the reference's layout (``checkpoint``).  The
-reference's ``elastic`` module (meshes) waits for the sharding slice."""
+atomic checkpoints in the reference's layout (``checkpoint``) and the
+elastic meshes a restart restores onto (``elastic``)."""

@@ -14,7 +14,9 @@ keys sorted.  Writes go to ``step_*.tmp`` and are renamed only after
 fsync, so a killed writer never corrupts the latest checkpoint.  bfloat16,
 which numpy cannot hold, is stored as its byte view (uint8, last dim
 doubled) with the logical shape and dtype in the manifest, as the
-reference stores it.
+reference stores it.  ``restore(placements=...)`` places each leaf on a
+mesh as a DTensor (the reference's ``shardings``: an elastic restart onto
+whatever mesh the restarting job has).
 """
 from __future__ import annotations
 
@@ -43,6 +45,17 @@ def _leaves(tree: Any) -> List[Any]:
     return [] if tree is None else [tree]
 
 
+def _leaves_up_to(like: Any, tree: Any) -> List[Any]:
+    """``tree``'s node at each leaf position of ``like``, in
+    :func:`_leaves`' order (a ``(mesh, placements)`` pair stays whole)."""
+    if isinstance(like, dict):
+        return [x for k in sorted(like)
+                for x in _leaves_up_to(like[k], tree[k])]
+    if isinstance(like, (list, tuple)):
+        return [x for v, t in zip(like, tree) for x in _leaves_up_to(v, t)]
+    return [] if like is None else [tree]
+
+
 def _unflatten(like: Any, leaves) -> Any:
     """``like``'s structure with its leaves taken in turn from ``leaves``
     (an iterator)."""
@@ -56,7 +69,11 @@ def _unflatten(like: Any, leaves) -> Any:
 def _to_numpy(leaf: Any) -> Tuple[np.ndarray, str, list]:
     """(array to store, logical dtype, logical shape) of one leaf."""
     if isinstance(leaf, torch.Tensor):
-        t = leaf.detach().cpu()
+        from torch.distributed.tensor import DTensor
+        t = leaf.detach()
+        if isinstance(t, DTensor):           # its whole value (a collective)
+            t = t.full_tensor()
+        t = t.cpu()
         if t.dtype == torch.bfloat16:
             return (t.contiguous().view(torch.uint8).numpy(), "bfloat16",
                     list(t.shape))
@@ -113,11 +130,15 @@ def latest_step(directory: str) -> Optional[int]:
 
 
 def restore(directory: str, like: Any, step: Optional[int] = None,
-            device: Union[str, torch.device, None] = "cpu"
-            ) -> Tuple[Any, int]:
+            device: Union[str, torch.device, None] = "cpu",
+            placements: Any = None) -> Tuple[Any, int]:
     """Restore into the structure of ``like`` (a tree of tensors, ``meta``
     ones included, or of anything with ``shape`` and a torch ``dtype``):
-    each leaf as a tensor of the like leaf's dtype on ``device``."""
+    each leaf as a tensor of the like leaf's dtype on ``device``.
+    ``placements``, a tree of ``like``'s structure holding a ``(mesh,
+    placements)`` pair or None per leaf, restores a leaf with a pair as a
+    DTensor on that mesh (``distribute_tensor``; every rank reads the
+    file, so each takes its shards from its own copy)."""
     if step is None:
         step = latest_step(directory)
         if step is None:
@@ -131,8 +152,10 @@ def restore(directory: str, like: Any, step: Optional[int] = None,
         raise ValueError(
             f"checkpoint has {manifest['num_leaves']} leaves, expected "
             f"{len(leaves_like)} — structure mismatch")
+    placed = (_leaves_up_to(like, placements) if placements is not None
+              else [None] * len(leaves_like))
     out = []
-    for i, ref in enumerate(leaves_like):
+    for i, (ref, where) in enumerate(zip(leaves_like, placed)):
         t = torch.from_numpy(np.load(os.path.join(path, f"leaf_{i:05d}.npy")))
         meta = manifest["leaves"][i]
         if meta["dtype"] not in _NUMPY_NATIVE:
@@ -144,7 +167,14 @@ def restore(directory: str, like: Any, step: Optional[int] = None,
         if tuple(t.shape) != want_shape:
             raise ValueError(f"leaf {i}: checkpoint shape {tuple(t.shape)} "
                              f"!= expected {want_shape}")
-        out.append(t.to(device=device, dtype=ref.dtype))
+        if where is None:
+            out.append(t.to(device=device, dtype=ref.dtype))
+            continue
+        from torch.distributed.tensor import distribute_tensor
+        mesh, pl = where
+        out.append(distribute_tensor(
+            t.to(device=mesh.device_type, dtype=ref.dtype), mesh, pl,
+            src_data_rank=None))
     return _unflatten(like, iter(out)), step
 
 

@@ -6,7 +6,9 @@ dicts of tensors keyed by the model's parameter names.  The state is
 0-d int32 tensor).  The update runs in fp32 with the reference's
 arithmetic, in its order, and casts back to the param dtype (bf16): the
 standard mixed-precision recipe.  ``torch.optim.AdamW`` computes it in
-another order, so it is not used.
+another order, so it is not used.  On DTensor parameters (a model under a
+mesh) the state is DTensors on the same placements, and the gradient norm
+is over the whole tensors, as under GSPMD.
 """
 from __future__ import annotations
 
@@ -15,6 +17,8 @@ from dataclasses import dataclass
 from typing import Dict, Mapping, Tuple
 
 import torch
+
+from repro_torch.sharding.policy import PartitionSpec
 
 Tensors = Dict[str, torch.Tensor]
 
@@ -32,16 +36,27 @@ class AdamWConfig:
     min_lr_ratio: float = 0.1
 
 
+def _zeros32(p: torch.Tensor) -> torch.Tensor:
+    """fp32 zeros shaped (and, for a DTensor, placed) as ``p``."""
+    return torch.zeros_like(p, dtype=torch.float32,
+                            memory_format=torch.contiguous_format)
+
+
+def state_specs(param_specs: Mapping) -> Dict:
+    """Specs of the optimizer state: ``master``, ``m`` and ``v`` mirror the
+    params, ``step`` is replicated (the reference's ``state_specs``)."""
+    return {"master": param_specs, "m": param_specs, "v": param_specs,
+            "step": PartitionSpec()}
+
+
 def init_state(params: Mapping[str, torch.Tensor]) -> Dict:
     """fp32 copies of ``params`` (``master``), zero moments, step 0."""
     first = next(iter(params.values()))
     return {
         "master": {k: p.detach().to(torch.float32, copy=True)
                    for k, p in params.items()},
-        "m": {k: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-              for k, p in params.items()},
-        "v": {k: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-              for k, p in params.items()},
+        "m": {k: _zeros32(p) for k, p in params.items()},
+        "v": {k: _zeros32(p) for k, p in params.items()},
         "step": torch.zeros((), dtype=torch.int32, device=first.device),
     }
 

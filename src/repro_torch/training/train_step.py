@@ -13,6 +13,13 @@ parameters and the optimizer's tensors in place, as the reference's jitted
 step does with donated buffers.  ``state_tree`` lays a state out as the
 reference's tree (stacked ``[L, ...]`` leaves), which is what checkpoints
 hold.
+
+A model under a mesh (``Model.policy``) trains on DTensor parameters and
+optimizer state; the grad norm and clipping are over the whole tensors,
+as under GSPMD, and the metrics come back as plain tensors (the same on
+every rank).  ``state_tree`` gathers a sharded state whole;
+``train_state_placements`` gives the placements a checkpoint's tree is
+restored onto (``checkpoint.restore(placements=...)``).
 """
 from __future__ import annotations
 
@@ -23,19 +30,85 @@ import torch
 
 from repro_torch.models.convert import from_jax_params, to_jax_params
 from repro_torch.models.model import Model
+from repro_torch.sharding.policy import is_dtensor, whole
 from repro_torch.training import compression as comp
 from repro_torch.training import optimizer as opt
 
 TrainState = Dict[str, Any]
 
 
+def _placed_as(g: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """A DTensor gradient on its parameter's placements: a pending sum (a
+    replicated weight's gradient over sharded activations) is reduced
+    here, before the optimizer squares it."""
+    if is_dtensor(g) and tuple(g.placements) != tuple(w.placements):
+        return g.redistribute(w.device_mesh, w.placements)
+    return g
+
+
+def train_state_specs(model: Model) -> Dict:
+    """The reference's ``train_state_specs``: the params' specs
+    (``Model.param_specs``, per layer) and the optimizer's."""
+    pspecs = model.param_specs()
+    return {"params": pspecs, "opt": opt.state_specs(pspecs)}
+
+
+def train_state_shapes(model: Model, cfg: opt.AdamWConfig) -> Dict:
+    """The reference's ``train_state_shapes``: the train state's tree
+    (``state_tree``'s layout) as ``meta`` tensors, allocating nothing."""
+    meta = Model(model.arch, device="meta", dtype=model.dtype)
+    return state_tree(meta, init_train_state(meta, None, cfg), device="meta")
+
+
+def _stacked_specs(model: Model) -> Dict:
+    """``Model.param_specs`` laid over ``to_jax_params``' tree: a stacked
+    leaf's spec gains a leading (replicated) layer dim, two for an MoE
+    model's dense layers ``[n_groups, moe_every - 1, ...]``."""
+    specs = model.param_specs()
+
+    def lead(table, n):
+        return {k: (None,) * n + tuple(v) for k, v in table.items()}
+
+    out = {k: specs[k] for k in ("embed", "final_norm", "lm_head")
+           if k in specs}
+    if model.arch.family == "moe":
+        out["blocks"] = {k: lead(v, 1 if k == "moe" else 2)
+                         for k, v in specs["blocks"].items()}
+    else:
+        out["blocks"] = lead(specs["blocks"], 1)
+    if "shared_attn" in specs:
+        out["shared_attn"] = lead(specs["shared_attn"], 1)
+    return out
+
+
+def train_state_placements(model: Model, state: TrainState) -> Dict:
+    """``(mesh, placements)`` per leaf of ``state_tree(model, state)`` (None
+    where a leaf stays a plain tensor: the step, the error buffers), for
+    ``checkpoint.restore(placements=...)``; all None without a mesh."""
+    pol = model.policy
+
+    def place(spec):
+        if isinstance(spec, dict):
+            return {k: place(v) for k, v in spec.items()}
+        return None if pol.mesh is None else (pol.mesh,
+                                               pol.placements_of(spec))
+
+    params = place(_stacked_specs(model))
+    out = {"params": params, "opt": {"master": params, "m": params,
+                                     "v": params, "step": None}}
+    if "err" in state:
+        out["err"] = comp.map_tree(lambda t: None, state["err"])
+    return out
+
+
 def init_train_state(model: Model, generator: Optional[torch.Generator],
                      cfg: opt.AdamWConfig) -> TrainState:
     """Make ``model``'s parameters trainable (random weights from
-    ``generator``, or the weights it holds when None) and the optimizer's
-    state for them."""
+    ``generator``, or the weights it holds when None; placed on the
+    policy's mesh, if any) and the optimizer's state for them."""
     if generator is not None:
         model.init(generator)
+    model.distribute()
     model.requires_grad_(True)
     params = dict(model.named_parameters())
     return {"params": params, "opt": opt.init_state(params)}
@@ -74,9 +147,11 @@ def make_train_step(model: Model, cfg: opt.AdamWConfig, *,
 
     def value_and_grad(batch):
         loss = model.loss(batch)
-        grads = torch.autograd.grad(loss, weights, allow_unused=True,
-                                    materialize_grads=True)
-        return loss.detach(), dict(zip(names, grads))
+        with model.on_mesh():   # the backward meets the plain tensors too
+            grads = torch.autograd.grad(loss, weights, allow_unused=True,
+                                        materialize_grads=True)
+        return loss.detach(), {n: _placed_as(g, w)
+                               for n, g, w in zip(names, grads, weights)}
 
     def grads_of(batch):
         if microbatches <= 1:
@@ -87,8 +162,7 @@ def make_train_step(model: Model, cfg: opt.AdamWConfig, *,
                              f"{microbatches} microbatches")
         mb = B // microbatches
         loss_acc = torch.zeros((), dtype=torch.float32, device=model.device)
-        g_acc = {n: torch.zeros(p.shape, dtype=torch.float32,
-                                device=p.device) for n, p in named}
+        g_acc = {n: opt._zeros32(p) for n, p in named}
         for i in range(microbatches):
             loss, g = value_and_grad({k: v[i * mb:(i + 1) * mb]
                                       for k, v in batch.items()})
@@ -105,6 +179,9 @@ def make_train_step(model: Model, cfg: opt.AdamWConfig, *,
                     p.copy_(state["params"][n])
         loss, grads = grads_of(batch_on(batch, model.device))
         if grad_compression == "int8":
+            if model.sharded:
+                raise NotImplementedError(
+                    "grad_compression='int8' on a model under a mesh")
             tree = to_jax_params(model.arch, grads)
             err = state.get("err")
             if err is None:
@@ -121,7 +198,7 @@ def make_train_step(model: Model, cfg: opt.AdamWConfig, *,
         new_state = {"params": dict(named), "opt": opt_state}
         if grad_compression == "int8":
             new_state["err"] = err
-        metrics = {"loss": loss, "grad_norm": gnorm,
+        metrics = {"loss": whole(loss), "grad_norm": whole(gnorm),
                    "lr": opt.schedule(cfg, opt_state["step"])}
         return new_state, metrics
 
@@ -133,11 +210,19 @@ def state_tree(model: Model, state: TrainState,
                device: Union[str, torch.device, None] = None) -> Dict:
     """``state`` as the reference's train-state tree: params and each
     optimizer tree through ``convert.to_jax_params`` (stacked on
-    ``device``; ``"meta"`` gives the shapes alone), ``step`` as it is."""
+    ``device``; ``"meta"`` gives the shapes alone), ``step`` as it is.  A
+    DTensor is gathered whole (a collective: every rank calls this)."""
     arch = model.arch
 
+    def gathered(t):
+        if is_dtensor(t) and device is not None and \
+                torch.device(device).type == "meta":
+            return torch.empty(t.shape, dtype=t.dtype, device="meta")
+        return whole(t)
+
     def tree(d):
-        return to_jax_params(arch, d, device)
+        return to_jax_params(arch, {k: gathered(t) for k, t in d.items()},
+                             device)
 
     o = state["opt"]
     out = {"params": tree(state["params"]),
@@ -157,11 +242,17 @@ def load_state_tree(model: Model, state: TrainState, tree: Dict
     """Copy a reference-shaped tree (``state_tree``'s layout, e.g. from
     ``checkpoint.restore``) into ``state`` in place; the tree's ``err``
     buffers, if any, become the state's, on the model's device.  Returns
-    the state."""
+    the state.  Into a DTensor state a plain leaf is distributed (each
+    rank holds the whole value) and a DTensor one (restored with
+    placements) is copied shard to shard."""
     arch = model.arch
 
     def copy(dst, src):
         for k, t in from_jax_params(arch, src).items():
+            if is_dtensor(dst[k]) and not is_dtensor(t):
+                from torch.distributed.tensor import distribute_tensor
+                t = distribute_tensor(t.to(dst[k].device), dst[k].device_mesh,
+                                      dst[k].placements, src_data_rank=None)
             dst[k].copy_(t)
 
     copy(state["params"], tree["params"])

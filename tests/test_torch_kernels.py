@@ -283,3 +283,132 @@ def test_flash_bf16_refuses_misaligned_stride_on_gpu():
     assert fmod.launches == n
     got = fmod.flash_attention(q.contiguous(), q.contiguous(), q.contiguous())
     assert fmod.launches == n + 1 and got.shape == q.shape
+
+
+# ---------------------------------------------------------------------------
+# the wrappers under DTensor (a model under a sharding policy)
+@pytest.fixture
+def one_rank_fake_group():
+    """A one-rank ``fake`` default group, destroyed when the test ends."""
+    import torch.distributed as dist
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=1)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.gpu
+def test_wrappers_on_a_one_by_one_cuda_mesh():
+    """Each wrapper on DTensors of a 1x1 cuda mesh launches its kernel on
+    the local shards and agrees with its plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import os
+    import tempfile
+
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    from repro_torch.kernels import quant_matmul as qmod
+    from repro_torch.kernels import ssd_scan as smod
+    from repro_torch.launch.mesh import make_host_mesh
+    store = dist.FileStore(os.path.join(tempfile.mkdtemp(), "store"), 1)
+    dist.init_process_group("nccl", store=store, rank=0, world_size=1)
+    try:
+        mesh = make_host_mesh([("data", 1), ("model", 1)])
+        g = torch.Generator(device="cuda").manual_seed(0)
+
+        def rnd(*shape, dtype=torch.bfloat16):
+            return torch.randn(shape, generator=g, device="cuda").to(dtype)
+
+        def dt(x, *pl):
+            return DTensor.from_local(x, mesh, pl, run_check=False)
+
+        q, k, v = rnd(2, 64, 8, 128), rnd(2, 64, 2, 128), rnd(2, 64, 2, 128)
+        n = fmod.launches
+        out = ops.flash_attention(dt(q, Shard(0), Shard(2)),
+                                  dt(k, Shard(0), Shard(2)),
+                                  dt(v, Shard(0), Shard(2)), causal=True)
+        assert fmod.launches == n + 1
+        torch.testing.assert_close(out.full_tensor(),
+                                   ref.flash_attention_ref(q, k, v),
+                                   atol=2e-2, rtol=2e-2)
+        n = dmod.launches
+        out = ops.decode_attention(dt(q[:, :1], Shard(0), Shard(2)),
+                                   dt(k, Shard(0), Shard(1)),
+                                   dt(v, Shard(0), Shard(1)), 40)
+        assert dmod.launches == n + 1
+        torch.testing.assert_close(
+            out.full_tensor(), ref.decode_attention_ref(q[:, :1], k, v, 40),
+            atol=2e-2, rtol=2e-2)
+        x = rnd(2, 64, 4, 64, dtype=torch.float32)
+        dtv = torch.rand(2, 64, 4, device="cuda") * 0.1
+        A = -torch.rand(4, device="cuda") - 0.5
+        Bm, Cm = (rnd(2, 64, 128, dtype=torch.float32) for _ in range(2))
+        n = smod.launches
+        y, s = ops.ssd_scan(dt(x, Shard(0), Shard(2)),
+                            dt(dtv, Shard(0), Shard(2)),
+                            dt(A, Replicate(), Shard(0)),
+                            dt(Bm, Shard(0), Replicate()),
+                            dt(Cm, Shard(0), Replicate()))
+        assert smod.launches == n + 1
+        wy, ws = ref.ssd_scan_ref(x, dtv, A, Bm, Cm)
+        torch.testing.assert_close(y.full_tensor(), wy, atol=2e-3, rtol=2e-3)
+        torch.testing.assert_close(s.full_tensor(), ws, atol=2e-3, rtol=2e-3)
+        xq = torch.randint(-127, 128, (64, 256), device="cuda",
+                           dtype=torch.int8)
+        wq = torch.randint(-127, 128, (256, 128), device="cuda",
+                           dtype=torch.int8)
+        xs, wsc = torch.rand(64, device="cuda"), torch.rand(128, device="cuda")
+        n = qmod.launches
+        out = ops.quant_matmul(dt(xq, Shard(0), Replicate()),
+                               dt(wq, Replicate(), Shard(1)),
+                               dt(xs, Shard(0), Replicate()),
+                               dt(wsc, Replicate(), Shard(0)))
+        assert qmod.launches == n + 1
+        torch.testing.assert_close(out.full_tensor(),
+                                   ref.quant_matmul_ref(xq, wq, xs, wsc),
+                                   atol=1e-6, rtol=1e-6)
+    finally:
+        dist.destroy_process_group()
+
+
+def test_wrappers_take_dtensors_on_the_cpu(one_rank_fake_group):
+    """The same dispatch on the CPU: DTensors on a 1x1 mesh of the fake
+    group reach the plain versions through the local path, placements as
+    the card's path gives them (batch/heads for attention, rows and
+    columns for the int8 GEMM)."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    from repro_torch.launch.mesh import make_host_mesh
+    mesh = make_host_mesh([("data", 1), ("model", 1)], device_type="cpu")
+    g = torch.Generator().manual_seed(0)
+
+    def dt(x, *pl):
+        return DTensor.from_local(x, mesh, pl, run_check=False)
+
+    q, k, v = (torch.randn(s, generator=g) for s in
+               ((2, 8, 4, 16), (2, 8, 2, 16), (2, 8, 2, 16)))
+    out = ops.flash_attention(dt(q, Shard(0), Shard(2)),
+                              dt(k, Shard(0), Shard(2)),
+                              dt(v, Shard(0), Shard(2)))
+    assert out.placements == (Shard(0), Shard(2))
+    assert torch.equal(out.full_tensor(), ref.flash_attention_ref(q, k, v))
+    # a sequence-sharded cache is gathered to the heads first
+    out = ops.decode_attention(dt(q[:, :1], Replicate(), Shard(2)),
+                               dt(k, Replicate(), Shard(1)),
+                               dt(v, Replicate(), Shard(1)), 5)
+    assert out.placements == (Replicate(), Shard(2))
+    assert torch.equal(out.full_tensor(),
+                       ref.decode_attention_ref(q[:, :1], k, v, 5))
+    xq = torch.randint(-127, 128, (6, 32), generator=g).to(torch.int8)
+    wq = torch.randint(-127, 128, (32, 10), generator=g).to(torch.int8)
+    xs, ws = torch.rand(6, generator=g), torch.rand(10, generator=g)
+    out = ops.quant_matmul(dt(xq, Shard(0), Replicate()),
+                           dt(wq, Replicate(), Shard(1)),
+                           dt(xs, Shard(0), Replicate()),
+                           dt(ws, Replicate(), Shard(0)))
+    assert out.placements == (Shard(0), Shard(1))
+    assert torch.equal(out.full_tensor(), ref.quant_matmul_ref(xq, wq, xs, ws))

@@ -252,3 +252,119 @@ def test_chip_smoke_train_phase_catches_a_lost_restore(cpu_train_phase,
                         lambda model, state, tree: state)
     with pytest.raises(AssertionError, match="restart"):
         cpu_train_phase()
+
+
+# ---------------------------------------------------------------------------
+# the sharding substrate: the launcher on a mesh, the import scan
+SHARDING_SOURCES = ("sharding/policy.py", "launch/mesh.py",
+                    "training/elastic.py")
+
+
+@pytest.mark.parametrize("rel", SHARDING_SOURCES)
+def test_import_scan_covers_the_sharding_substrate(rel):
+    scanned = _scanned()
+    assert rel in scanned
+    with open(scanned[rel], encoding="utf-8") as f:
+        tree = ast.parse(f.read(), filename=rel)
+    bad = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names = [node.module or ""] if not node.level else []
+        else:
+            continue
+        bad += [f"{rel}:{node.lineno}: {n}" for n in names
+                if n.split(".")[0] in ("jax", "jaxlib", "repro")]
+    assert not bad, bad
+
+
+def test_sharding_substrate_imports_neither_jax_nor_repro():
+    code = (
+        "import sys\n"
+        "import repro_torch.sharding.policy, repro_torch.launch.mesh\n"
+        "import repro_torch.training.elastic, repro_torch.launch.train\n"
+        "bad = [m for m in sys.modules\n"
+        "       if m.split('.')[0] in ('jax', 'repro')]\n"
+        "assert not bad, bad\n")
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    proc = subprocess.run([sys.executable, "-c", code], env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _train_ranks(n: int, *argv, timeout=120):
+    """``python -m repro_torch.launch.train`` as ``n`` ranks of one gloo
+    group, torchrun's environment set by hand (a free port on 127.0.0.1)
+    -> each rank's finished process."""
+    port = str(_free_port())
+    procs = []
+    for rank in range(n):
+        env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
+                   WORLD_SIZE=str(n), RANK=str(rank), LOCAL_RANK=str(rank),
+                   MASTER_ADDR="127.0.0.1", MASTER_PORT=port,
+                   OMP_NUM_THREADS="1")
+        procs.append(subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.train", *argv],
+            env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True))
+    out = []
+    try:
+        for p in procs:
+            stdout, stderr = p.communicate(timeout=timeout)
+            out.append((p.returncode, stdout, stderr))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    return out
+
+
+def test_train_launcher_on_two_gloo_ranks_prints_the_reference_lines(
+        tmp_path):
+    """--model-parallel 2 on two ranks: a (1, 2) mesh, the training
+    policy, rank 0 alone prints, and the losses are the one-device run's
+    (printed to 4 decimals); a checkpoint it writes resumes."""
+    common = ("--arch", "granite-3-2b", "--reduced", "--device", "cpu",
+              "--seq-len", "32", "--global-batch", "4", "--log-every", "1")
+    ckpt_dir = str(tmp_path / "ckpt")
+    ranks = _train_ranks(2, *common, "--model-parallel", "2", "--steps", "3",
+                         "--ckpt-dir", ckpt_dir)
+    for rc, _, err in ranks:
+        assert rc == 0, err
+    lines = ranks[0][1].splitlines()
+    assert [ln.split()[1] for ln in lines[:-1]] == ["0", "1", "2"]
+    assert all(STEP_LINE.fullmatch(ln) for ln in lines[:-1]), lines
+    assert lines[-1] == "done."
+    assert ranks[1][1] == ""
+    one = _train(*common, "--steps", "3")
+    assert one.returncode == 0, one.stderr
+    loss = [ln.split()[3] for ln in one.stdout.splitlines()[:-1]]
+    assert [ln.split()[3] for ln in lines[:-1]] == loss
+    assert open(os.path.join(ckpt_dir, "LATEST")).read() == "step_00000003"
+    again = _train_ranks(2, *common, "--model-parallel", "2", "--steps", "4",
+                         "--ckpt-dir", ckpt_dir, "--resume")
+    for rc, _, err in again:
+        assert rc == 0, err
+    lines = again[0][1].splitlines()
+    assert lines[0] == "resumed from step 3"
+    assert [ln.split()[1] for ln in lines[1:-1]] == ["3"]
+
+
+def test_train_launcher_builds_no_mesh_on_one_device():
+    import torch.distributed as dist
+
+    from repro_torch.launch import train as ptrain
+    args = ptrain.parse_args(["--arch", "granite-3-2b", "--reduced",
+                              "--device", "cpu", "--steps", "1"])
+    model = ptrain.setup(args)[0]
+    assert model.policy.mesh is None and not model.sharded
+    assert not dist.is_initialized()
