@@ -178,6 +178,32 @@ Phases, each printing one JSON line; any failure exits non-zero:
               3 steps without a policy and, its state freed, 3 from the
               same seed under the training policy: losses within 1e-3
               relative, step times, peak memory and collectives.
+15. dryrun  -- the dry-run and roofline (launch/specs.py, dryrun.py,
+              roofline.py) held against the card's own steps.  Three card
+              cells, each counted on meta over the 1x1 mesh (one-rank
+              NCCL group; build_step, impl="plain") and then run on the
+              card: qwen2-7b's prefill of the serve batch's padded shape,
+              one qwen2-7b decode step (cache_len the padded prompt of
+              prompt + SERVE_NEW), and granite-3-2b's train step (8 x 256,
+              remat none, one microbatch, as phase 13 runs it).  The
+              counted FLOPs must equal the same counting mode's over the
+              card's step on the plain versions without a policy, the
+              argument bytes be within 1 % of what the card allocated for
+              the step's setup, and the served steps (on the kernels)
+              launch flash / decode exactly once a layer; printed beside:
+              the predicted peak and max_memory_allocated of the plain
+              step, the wall of each timed step (host clock after
+              synchronize), compute and memory bounds of the timed path
+              (the served steps' from the dry-run's kernel-path count, the
+              train step's from its plain count), wall over bound, the
+              plain path's bounds beside them, and the roofline fraction
+              (2ND, 6ND for training, over wall x 989e12).  Then the
+              production cells qwen2-7b x decode_32k and llama4-scout x
+              train_4k on the 256-rank pod mesh, each
+              through python -m repro_torch.launch.dryrun in a subprocess
+              on a fake group (no card visible): each must end ok; its
+              roofline row, memory, collectives by kind and seconds are
+              printed.
 
 The second-to-last line is ``{"kernels": [...]}``, one row per kernel at
 its main serving shape (four for quant_matmul: prefill and decode, each
@@ -3543,6 +3569,271 @@ def phase_shard(torch, card, seed: int, device: str = "cuda",
 
 
 # ---------------------------------------------------------------------------
+DRYRUN_ARGS_RTOL = 0.01    # dry-run argument bytes against the card's
+DRYRUN_PRODUCTION = (("qwen2-7b", "decode_32k", "pod"),
+                     ("llama4-scout-17b-a16e", "train_4k", "pod"))
+DRYRUN_WAIT_S = 600.0      # the production cells' subprocesses
+DRYRUN_REPS = 3            # timed steps of each card cell
+
+
+def _dryrun_start(cells, tmp: str) -> list:
+    """One ``python -m repro_torch.launch.dryrun`` per production cell,
+    all started together, with no card visible: they count on ``meta``
+    over a ``fake`` group (a second default group cannot live beside this
+    process's NCCL one)."""
+    env = {**os.environ, "PYTHONPATH": str(SRC), "CUDA_VISIBLE_DEVICES": ""}
+    procs = []
+    for cell in cells:
+        stem = os.path.join(tmp, "__".join(cell))
+        log = open(stem + ".log", "w")
+        arch, shape, mesh = cell
+        p = subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             arch, "--shape", shape, "--mesh", mesh, "--out",
+             stem + ".json"], env=env, stdout=log, stderr=subprocess.STDOUT)
+        procs.append((cell, p, stem, log, time.monotonic()))
+    return procs
+
+
+def _dryrun_finish(card, procs, deadline: float) -> list:
+    """Wait for the production cells (killing any past ``deadline``) and
+    print each record's roofline row, memory, collectives and seconds."""
+    from repro_torch.launch.roofline import PRESET, analyze_record
+    fails = []
+    for cell, p, stem, log, t0 in procs:
+        try:
+            p.wait(timeout=max(deadline - time.monotonic(), 1.0))
+        except subprocess.TimeoutExpired:
+            p.kill()
+            p.wait()
+        log.close()
+        wall = time.monotonic() - t0
+        rec = {"ok": False, "error": "no record"}
+        if os.path.exists(stem + ".json"):
+            with open(stem + ".json") as f:
+                rec = json.load(f)
+        if p.returncode != 0 or not rec.get("ok"):
+            with open(stem + ".log") as f:
+                tail = f.read()[-1500:]
+            fails.append(f"{' x '.join(cell)}: rc {p.returncode}, "
+                         f"{rec.get('error')}; {tail}")
+        row = analyze_record(rec) or {}
+        emit("dryrun_production", card=card["nvidia_smi"], cell=cell,
+             ok=bool(rec.get("ok")), returncode=p.returncode,
+             subprocess_wall_s=wall, build_s=rec.get("build_s"),
+             count_s=rec.get("count_s"), chips=rec.get("chips"),
+             attn_mode=rec.get("attn_mode"),
+             policy_notes=rec.get("policy_notes"), cost=rec.get("cost"),
+             memory=rec.get("memory"), collectives=rec.get("collectives"),
+             collective_counts=rec.get("collective_counts"),
+             roofline_preset=PRESET,
+             roofline={k: row.get(k) for k in (
+                 "compute_s", "memory_s", "collective_s", "dominant",
+                 "step_time_bound_s", "roofline_fraction",
+                 "useful_ratio_6nd", "useful_ratio_fwd")})
+    return fails
+
+
+def _dryrun_card(torch, card, mesh, label: str, arch, shape, kw: dict,
+                 base: int, setup, expect: dict) -> list:
+    """One card cell: the meta dry-run of ``build_step(arch, shape, mesh,
+    **kw)``, then the same step on the card.  ``setup()`` allocates the
+    card's step and returns ``(fn, args, timed)``: ``fn(*args)`` is the
+    step on the plain versions without a policy, counted by the same
+    mode; ``timed()`` runs the timed step once.  The FLOPs must be equal
+    and the argument bytes within DRYRUN_ARGS_RTOL of the card's
+    allocation over ``base``; ``timed``'s launches are set to 0 just
+    before its first run and read just after (``expect``).  The bound is
+    that of the path ``timed`` runs: the dry-run's kernel-path count
+    where it launches kernels, its plain count where it launches none."""
+    from repro_torch.kernels import decode_attention as dmod
+    from repro_torch.kernels import flash_attention as fmod
+    from repro_torch.launch import dryrun
+    t0 = time.monotonic()
+    fn, args, policy = dryrun.build_step(arch, shape, mesh, **kw)
+    meta = dryrun.count_step(fn, args, comm_debug=True)
+    del fn, args
+    meta_s = time.monotonic() - t0
+    fn, args, timed = setup()
+    torch.cuda.synchronize()
+    allocated = torch.cuda.memory_allocated() - base
+    torch.cuda.reset_peak_memory_stats()
+    real = dryrun.count_step(fn, args)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    timed()                                   # warm-up
+    torch.cuda.synchronize()
+    walls, launches = [], None
+    mods = {"flash_attention": fmod, "decode_attention": dmod}
+    for _ in range(DRYRUN_REPS):
+        for mod in mods.values():
+            mod.launches = 0
+        t1 = time.monotonic()
+        timed()
+        torch.cuda.synchronize()
+        walls.append(time.monotonic() - t1)
+        if launches is None:
+            launches = {k: mod.launches for k, mod in mods.items()}
+    del fn, args, timed
+    wall = sorted(walls)[len(walls) // 2]
+    _, active = arch.param_count()
+    model_flops = (6.0 if shape.kind == "train" else 2.0) * active * \
+        shape.tokens
+    plain_compute_s = meta["flops"] / PEAK_FLOPS["bfloat16"]
+    plain_memory_s = meta["bytes"] / PEAK_BYTES_S
+    path = "kernel" if any(expect.values()) else "plain"
+    timed_count = meta["kernel_path"] if path == "kernel" else meta
+    compute_s = timed_count["flops"] / PEAK_FLOPS["bfloat16"]
+    memory_s = timed_count["bytes"] / PEAK_BYTES_S
+    bound = max(compute_s, memory_s)
+    mem = meta["memory"]
+    args_err = abs(mem["argument_size_in_bytes"] - allocated) / allocated
+    fails = []
+    if meta["flops"] != real["flops"]:
+        fails.append(f"{label}: dry-run FLOPs {meta['flops']} != the "
+                     f"card step's {real['flops']}")
+    if not args_err <= DRYRUN_ARGS_RTOL:
+        fails.append(f"{label}: argument bytes {mem['argument_size_in_bytes']}"
+                     f" vs {allocated} allocated ({args_err})")
+    if launches != expect:
+        fails.append(f"{label}: launches {launches} != {expect}")
+    emit("dryrun_cell", card=card["nvidia_smi"], cell=label,
+         arch=arch.name, kind=shape.kind, batch=shape.global_batch,
+         seq=shape.seq_len, build_step_kw=kw, attn_mode=policy.attn_mode,
+         dryrun_s=meta_s, flops=meta["flops"], card_flops=real["flops"],
+         bytes=meta["bytes"], card_bytes=real["bytes"],
+         kernel_path=meta["kernel_path"], timed_path=path,
+         collectives=meta["collectives"],
+         comm_debug_counts=meta["comm_debug_counts"], memory=mem,
+         card_allocated_bytes=allocated, argument_bytes_rel_err=args_err,
+         args_rtol=DRYRUN_ARGS_RTOL,
+         predicted_peak_bytes=mem["peak_memory_in_bytes"],
+         card_peak_bytes_plain_step=peak,
+         predicted_temp_bytes=mem["temp_size_in_bytes"],
+         launches=launches, expected_launches=expect, step_wall_s=walls,
+         median_wall_s=wall, compute_s=compute_s, memory_s=memory_s,
+         bound_s=bound, bound_by="operations" if compute_s >= memory_s
+         else "bytes", measured_over_bound=wall / bound,
+         plain_path_compute_s=plain_compute_s,
+         plain_path_memory_s=plain_memory_s,
+         plain_path_bound_s=max(plain_compute_s, plain_memory_s),
+         model_flops=model_flops,
+         roofline_fraction=model_flops / (wall * PEAK_FLOPS["bfloat16"]),
+         failures=fails)
+    return fails
+
+
+def phase_dryrun(torch, card, seed: int, device: str = "cuda",
+                 backend: str = "nccl", production=DRYRUN_PRODUCTION) -> None:
+    """The dry-run (``launch/dryrun.py``, ``roofline.py``) held against the
+    card's own steps: three card cells counted on ``meta`` over the 1x1
+    mesh and then run (module docstring); then the production cells in
+    subprocesses on a ``fake`` group."""
+    import shutil
+    import tempfile
+    import torch.distributed as dist
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.shapes import ShapeConfig
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import Model
+    from repro_torch.models.kvcache import num_attn_applications
+    from repro_torch.training import optimizer as opt
+    from repro_torch.training.train_step import (init_train_state,
+                                                 make_train_step)
+    t0 = time.monotonic()
+    tmp = tempfile.mkdtemp(prefix="dryrun_")
+    procs, fails = [], []
+    own_group = not dist.is_initialized()
+    try:
+        if own_group:
+            dist.init_process_group(backend, store=dist.FileStore(
+                os.path.join(tmp, "store"), 1), rank=0, world_size=1)
+        mesh = make_host_mesh(SHARD_MESH, device_type=device)
+        qwen = get_arch(QWEN)
+        S = max(len(p) for p in _serve_prompts(seed, qwen.vocab_size))
+        n = num_attn_applications(qwen)
+        gen = torch.Generator(device=device).manual_seed(seed)
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        model = Model(qwen, device=device, impl="plain").init(gen)
+
+        def serving(step, *inputs):
+            """``step(params, *inputs)`` counted on the plain versions,
+            timed on the kernels (the model's ``impl`` switched)."""
+            params = dict(model.named_parameters())
+
+            def timed():
+                model.impl = "kernel"
+                step(params, *inputs)
+            model.impl = "plain"
+            return step, (params,) + inputs, timed
+
+        def prefill_setup():
+            tokens = torch.randint(0, qwen.vocab_size, (SERVE_BATCH, S),
+                                   generator=gen, device=device)
+            return serving(lambda p, t: model.prefill(t), tokens)
+
+        fails += _dryrun_card(
+            torch, card, mesh, "qwen2-7b prefill", qwen,
+            ShapeConfig("serve_prefill", S, SERVE_BATCH, "prefill"), {},
+            base, prefill_setup, {"flash_attention": n,
+                                  "decode_attention": 0})
+
+        def decode_setup():
+            cache = model.init_cache(SERVE_BATCH, S + SERVE_NEW)
+            tokens = torch.randint(0, qwen.vocab_size, (SERVE_BATCH, 1),
+                                   generator=gen, device=device)
+            return serving(lambda p, c, pos, t: model.decode_step(c, pos, t),
+                           cache, S, tokens)
+
+        fails += _dryrun_card(
+            torch, card, mesh, "qwen2-7b decode step", qwen,
+            ShapeConfig("serve_decode", S + SERVE_NEW, SERVE_BATCH,
+                        "decode"), {"cache_len": S}, base, decode_setup,
+            {"flash_attention": 0, "decode_attention": n})
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        granite = get_arch(GRANITE)
+        base = torch.cuda.memory_allocated()
+
+        def train_setup():
+            m = Model(granite, device=device, impl="plain")
+            cfg = opt.AdamWConfig()
+            state = init_train_state(m, gen, cfg)
+            tokens = torch.randint(0, granite.vocab_size, (TRAIN_B, TRAIN_S),
+                                   generator=gen, device=device)
+            batch = {"tokens": tokens, "labels": tokens.clone()}
+            step = make_train_step(m, cfg)
+            return step, (state, batch), lambda: step(state, batch)
+
+        fails += _dryrun_card(
+            torch, card, mesh, "granite-3-2b train step", granite,
+            ShapeConfig("train", TRAIN_S, TRAIN_B, "train"),
+            {"remat": "none", "microbatches": 1}, base, train_setup,
+            {"flash_attention": 0, "decode_attention": 0})
+        gc.collect()
+        torch.cuda.empty_cache()
+        # after the card's timed steps: the counts load the host's cores
+        procs = _dryrun_start(production, tmp)
+        fails += _dryrun_finish(card, procs, time.monotonic() + DRYRUN_WAIT_S)
+    finally:
+        for _, p, _, log, _ in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            log.close()
+        if own_group and dist.is_initialized():
+            dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+    emit("dryrun_phase", card=card["nvidia_smi"],
+         phase_host_wall_s=time.monotonic() - t0, failures=fails)
+    if fails:
+        raise AssertionError("dryrun: " + "; ".join(fails))
+
+
+# ---------------------------------------------------------------------------
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0,
@@ -3584,6 +3875,7 @@ def main(argv=None) -> int:
     gc.collect()
     phase_train(torch, card, args.seed)
     phase_shard(torch, card, args.seed)
+    phase_dryrun(torch, card, args.seed)
     for row in rows:
         if row["name"] == "quant_matmul":   # no serve run calls it
             row["launches"] = int8_launches[row["model"]][row["layout"]]

@@ -13,7 +13,7 @@ from typing import Callable, Optional
 import torch
 import torch.nn.functional as F
 
-from repro_torch.sharding.policy import is_dtensor
+from repro_torch.sharding.policy import is_dtensor, redistribute
 
 
 def upcast(x: torch.Tensor) -> torch.Tensor:
@@ -58,14 +58,79 @@ def repeat_kv(x: torch.Tensor, q_per_kv: int) -> torch.Tensor:
     return x.repeat_interleave(q_per_kv, dim=2)
 
 
+def _folds(x: torch.Tensor) -> bool:
+    """Whether :func:`fold` folds ``x`` on its local shards: a DTensor
+    whose leading dims (all but the last) are sharded on another dim than
+    the first, evenly.  DTensor in torch 2.11 flattens a group of dims
+    only when the first of them is the one sharded."""
+    if not is_dtensor(x) or x.dim() <= 2:
+        return False
+    lead = x.dim() - 1
+    if not any(p.is_shard() and 0 < p.dim < lead for p in x.placements):
+        return False
+    ways = [1] * lead
+    for p, n in zip(x.placements, x.device_mesh.shape):
+        if p.is_shard() and p.dim < lead:
+            ways[p.dim] *= n
+    return all(x.shape[d] % ways[d] == 0 for d in range(lead))
+
+
+def fold(x: torch.Tensor) -> torch.Tensor:
+    """``x`` [..., K] as rows [N, K].  A DTensor sharded on a leading dim
+    past the first is reshaped on its local shards, the rows sharded (dim
+    0) over each mesh dim that shards a leading dim; :func:`unfold` is
+    the inverse for a row-wise result.  Otherwise a reshape.  Folded rows
+    come rank block by rank block, not in the flattened order, so only
+    row-wise work may run between the two."""
+    if not _folds(x):
+        return x.reshape(-1, x.shape[-1])
+    from torch.distributed.tensor import DTensor, Shard
+    lead = x.dim() - 1
+    places = [Shard(0 if p.dim < lead else 1) if p.is_shard() else p
+              for p in x.placements]
+    local = x.to_local()
+    return DTensor.from_local(local.reshape(-1, local.shape[-1]),
+                              x.device_mesh, places, run_check=False)
+
+
+def unfold(y: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """Rows ``y`` [N, M] computed row by row from ``fold(like)`` back in
+    ``like``'s leading shape and sharding: [..., M]."""
+    if not _folds(like):
+        return y.reshape(*like.shape[:-1], y.shape[-1])
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    lead = like.dim() - 1
+    rows = [p.is_shard() and p.dim < lead for p in like.placements]
+    # a pending sum is reduced here (its reshard's backward would ask
+    # DTensor for a Shard -> Partial redistribute)
+    want = [Shard(0) if r else (Replicate() if q.is_partial() or (
+        q.is_shard() and q.dim == 0) else q)
+        for r, q in zip(rows, y.placements)]
+    y = redistribute(y, want)
+    places = [p if r else (Shard(lead) if q.is_shard() else q)
+              for r, p, q in zip(rows, like.placements, want)]
+    local = y.to_local()
+    shape = like._local_tensor.shape[:-1] + (local.shape[-1],)
+    return DTensor.from_local(local.reshape(shape), y.device_mesh, places,
+                              run_check=False)
+
+
+def linear(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` for activations [..., K] and a weight [K, N], through
+    :func:`fold` where DTensor cannot flatten ``x``'s leading dims."""
+    if not _folds(x):
+        return x @ w
+    return unfold(fold(x) @ w, x)
+
+
 def gated_mlp(x: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor,
               wd: torch.Tensor, activation: str,
               pin: Optional[Callable] = None) -> torch.Tensor:
     """SwiGLU / GeGLU: (act(x@wg) * (x@wu)) @ wd; GeGLU's gelu is the tanh
     approximation, as ``jax.nn.gelu(approximate=True)``.  ``pin``, when
     given, constrains the sharding of ``x@wg`` (the reference pins it)."""
-    g = x @ wg
-    u = x @ wu
+    g = linear(x, wg)
+    u = linear(x, wu)
     if pin is not None:
         g = pin(g)
     if activation == "silu":
@@ -74,7 +139,26 @@ def gated_mlp(x: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor,
         g = F.gelu(g, approximate="tanh")
     else:
         raise ValueError(f"unknown activation {activation!r}")
-    return (g * u) @ wd
+    return linear(g * u, wd)
+
+
+def heads_whole(policy, w: torch.Tensor, heads: str,
+                out: bool = False) -> torch.Tensor:
+    """A projection weight ([d, heads, hd], or [heads, hd, d] with
+    ``out``) sharded by its ``heads`` axis alone under ``policy`` (a
+    ``ShardingPolicy``): its storage-only shards (``embed`` under FSDP, a
+    head dim sharded where the heads do not divide) gathered, as GSPMD
+    gathers them for the product.  DTensor cannot split a flattened
+    heads x hd dim sharded over more ranks than there are heads, and
+    against a sharded contraction dim it shards the product that way.  A
+    no-op without a mesh."""
+    if policy.mesh is None:
+        return w
+    logical = (heads, None, None) if out else (None, heads, None)
+    want = policy.placements_of(policy.pin_spec(tuple(w.shape), *logical))
+    if tuple(w.placements) == tuple(want):
+        return w
+    return policy.pin(w, *logical)
 
 
 def embed(tokens: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
@@ -93,4 +177,4 @@ def embed(tokens: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
 def logits(x: torch.Tensor, head: torch.Tensor) -> torch.Tensor:
     """[B,S,d] @ [d,V] -> fp32 logits.  The products of two bf16 values are
     exact in fp32, so this equals an fp32-accumulated bf16 product."""
-    return upcast(x) @ upcast(head)
+    return linear(upcast(x), upcast(head))

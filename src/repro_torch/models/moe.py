@@ -125,7 +125,7 @@ class Routes(NamedTuple):
 def _route(x: torch.Tensor, blk: MoEBlock, arch: ArchConfig):
     """fp32 routing -> (gate, idx, probs): top-k over the last dim, the k
     gates renormalised to sum to one."""
-    logits = layers.upcast(x) @ layers.upcast(blk.router)
+    logits = layers.linear(layers.upcast(x), layers.upcast(blk.router))
     probs = torch.softmax(logits, dim=-1)
     gate, idx = torch.topk(probs, arch.moe.experts_per_token, dim=-1)
     return gate / gate.sum(-1, keepdim=True), idx, probs
@@ -271,8 +271,16 @@ def moe_mlp(h: torch.Tensor, blk: MoEBlock, arch: ArchConfig,
     if dispatch == "auto":
         dispatch = "global" if policy.rules.get("seq") else "grouped"
     if dispatch == "global" or B == 1:
-        y = _dispatch_global(hn.reshape(B * S, d), blk, arch, routes,
-                             policy).reshape(B, S, d)
+        # one group in the reference's batch-major token order (capacity
+        # ranks run over it): the dispatch replicates its rows anyway, so
+        # they are gathered before the flatten, not after; the result is
+        # pinned back after its unflatten, so that the gradient reaches
+        # the unflatten replicated (torch 2.11 cannot flatten a seq-
+        # sharded one)
+        flat = policy.pin(hn, None, None, None).reshape(B * S, d)
+        y = policy.pin(_dispatch_global(flat, blk, arch, routes,
+                                        policy).reshape(B, S, d),
+                       "batch", "seq", None)
     else:
         y = _dispatch_grouped(hn, blk, arch, routes, policy)
     if arch.moe.shared_expert:

@@ -169,18 +169,22 @@ def _gated_out(y: torch.Tensor, z: torch.Tensor, p: SSMBlock,
     y = y * torch.rsqrt(y.square().mean(-1, keepdim=True) + arch.norm_eps)
     y = (y * (1.0 + p.gate_norm.to(y.dtype))).to(z.dtype)
     y = policy.pin(y, "batch", "seq", "ssm_heads", "ssm_pdim")
-    return y.flatten(2) @ p.wo.flatten(0, 1)
+    wo = layers.heads_whole(policy, p.wo, "ssm_heads", out=True)
+    return layers.linear(y.flatten(2), wo.flatten(0, 1))
 
 
-def _project(hn: torch.Tensor, p: SSMBlock, arch: ArchConfig):
+def _project(hn: torch.Tensor, p: SSMBlock, arch: ArchConfig,
+             policy: ShardingPolicy = NULL_POLICY):
     """z, x, B, C in the model's dtype and dt from an fp32 product."""
     s = arch.ssm
     nh, hd = s.num_heads(arch.d_model), s.head_dim
     lead = hn.shape[:-1]
-    z = (hn @ p.wz.flatten(1)).view(*lead, nh, hd)
-    x = (hn @ p.wx.flatten(1)).view(*lead, nh, hd)
-    dt = layers.upcast(hn) @ layers.upcast(p.wdt)
-    return z, x, hn @ p.wB, hn @ p.wC, dt
+    wz, wx = (layers.heads_whole(policy, w, "ssm_heads") for w in (p.wz,
+                                                                  p.wx))
+    z = layers.linear(hn, wz.flatten(1)).view(*lead, nh, hd)
+    x = layers.linear(hn, wx.flatten(1)).view(*lead, nh, hd)
+    dt = layers.linear(layers.upcast(hn), layers.upcast(p.wdt))
+    return z, x, layers.linear(hn, p.wB), layers.linear(hn, p.wC), dt
 
 
 def ssm_block_full(h: torch.Tensor, p: SSMBlock, arch: ArchConfig,
@@ -195,7 +199,7 @@ def ssm_block_full(h: torch.Tensor, p: SSMBlock, arch: ArchConfig,
     s = arch.ssm
     S = h.shape[1]
     hn = layers.rms_norm(h, p.ssm_norm, arch.norm_eps)
-    z, x_pre, B_pre, C_pre, dt = _project(hn, p, arch)
+    z, x_pre, B_pre, C_pre, dt = _project(hn, p, arch, policy)
     x_pre = policy.pin(x_pre, "batch", "seq", "ssm_heads", "ssm_pdim")
     z = policy.pin(z, "batch", "seq", "ssm_heads", "ssm_pdim")
 
@@ -234,7 +238,7 @@ def ssm_block_decode(h: torch.Tensor, p: SSMBlock, arch: ArchConfig,
     Returns (h + out, the new state)."""
     policy = policy or NULL_POLICY
     hn = layers.rms_norm(h, p.ssm_norm, arch.norm_eps)[:, 0]     # [B, d]
-    z, x_new, B_new, C_new, dt = _project(hn, p, arch)
+    z, x_new, B_new, C_new, dt = _project(hn, p, arch, policy)
 
     def conv_step(tail, new, w):
         full = torch.cat([tail, new[:, None]], dim=1)             # [B, cw, ...]

@@ -113,9 +113,11 @@ def _project_qkv(h: torch.Tensor, p: DenseBlock, arch: ArchConfig,
                  policy: ShardingPolicy = NULL_POLICY):
     B, S, _ = h.shape
     H, KV, hd = arch.num_heads, arch.num_kv_heads, arch.head_dim
-    q = (h @ p.wq.flatten(1)).view(B, S, H, hd)
-    k = (h @ p.wk.flatten(1)).view(B, S, KV, hd)
-    v = (h @ p.wv.flatten(1)).view(B, S, KV, hd)
+    wq, wk, wv = (layers.heads_whole(policy, w, heads) for w, heads in (
+        (p.wq, "qheads"), (p.wk, "kvheads"), (p.wv, "kvheads")))
+    q = layers.linear(h, wq.flatten(1)).view(B, S, H, hd)
+    k = layers.linear(h, wk.flatten(1)).view(B, S, KV, hd)
+    v = layers.linear(h, wv.flatten(1)).view(B, S, KV, hd)
     if arch.qkv_bias:           # before RoPE, as the reference does
         q, k, v = q + p.bq, k + p.bk, v + p.bv
     q = policy.pin(q, "batch", "seq", "qheads", None)
@@ -155,7 +157,7 @@ def attention_full(h: torch.Tensor, p: DenseBlock, arch: ArchConfig,
                      policy.mesh is not None)
     out = attend(q, k, v, causal=True)
     out = policy.pin(out, "batch", "seq", "qheads", None)
-    return attention_out(out, p), (k, v)
+    return attention_out(out, p, policy), (k, v)
 
 
 def decode_qkv(h: torch.Tensor, p: DenseBlock, arch: ArchConfig,
@@ -190,9 +192,11 @@ def decode_qkv(h: torch.Tensor, p: DenseBlock, arch: ArchConfig,
     return q
 
 
-def attention_out(o: torch.Tensor, p: DenseBlock) -> torch.Tensor:
+def attention_out(o: torch.Tensor, p: DenseBlock,
+                  policy: ShardingPolicy = NULL_POLICY) -> torch.Tensor:
     """The output projection of attention [B,S,H,hd] -> [B,S,d]."""
-    return o.flatten(2) @ p.wo.flatten(0, 1)
+    wo = layers.heads_whole(policy, p.wo, "qheads", out=True)
+    return layers.linear(o.flatten(2), wo.flatten(0, 1))
 
 
 def attention_decode(h: torch.Tensor, p: DenseBlock, arch: ArchConfig,
@@ -213,7 +217,8 @@ def attention_decode(h: torch.Tensor, p: DenseBlock, arch: ArchConfig,
     q = decode_qkv(h, p, arch, k_cache, v_cache, pos, cache_len, policy)
     attend = _attend(impl, ops.decode_attention, ref.decode_attention_ref,
                      policy.mesh is not None)
-    return attention_out(attend(q, k_cache, v_cache, cache_len + 1), p)
+    return attention_out(attend(q, k_cache, v_cache, cache_len + 1), p,
+                         policy)
 
 
 def mlp(h: torch.Tensor, p: DenseBlock, arch: ArchConfig,

@@ -132,11 +132,14 @@ class ShardingPolicy:
 
     def placements_of(self, spec) -> tuple:
         """DTensor placements of a spec: ``Shard(d)`` on each mesh dim
-        that tensor dim ``d`` lists, ``Replicate()`` elsewhere.  A dim
-        over two mesh axes must list them in mesh order (JAX's
-        major-to-minor layout); the rule table makes no other."""
+        of more than one rank that tensor dim ``d`` lists, ``Replicate()``
+        elsewhere (as :meth:`pin_spec`, which honours an axis only where
+        its extent is above 1).  A dim over two mesh axes must list them
+        in mesh order (JAX's major-to-minor layout); the rule table makes
+        no other."""
         from torch.distributed.tensor import Replicate, Shard
         names = axis_names(self.mesh)
+        extent = mesh_shape(self.mesh)
         out = [Replicate() for _ in names]
         for d, entry in enumerate(spec):
             if entry is None:
@@ -147,7 +150,8 @@ class ShardingPolicy:
                 raise ValueError(f"spec {spec}: dim {d} lists mesh axes "
                                  f"{group} out of mesh order {names}")
             for i in index:
-                out[i] = Shard(d)
+                if extent[names[i]] > 1:
+                    out[i] = Shard(d)
         return tuple(out)
 
     def placements(self, *logical: Optional[str]) -> tuple:

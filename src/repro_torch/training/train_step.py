@@ -116,11 +116,12 @@ def init_train_state(model: Model, generator: Optional[torch.Generator],
 
 def batch_on(batch: Mapping[str, Any], device: torch.device
              ) -> Dict[str, torch.Tensor]:
-    """A batch of ``training.data`` (numpy) as tensors on ``device``
-    (token ids and labels as int64)."""
+    """A batch of ``training.data`` (numpy, or tensors) as tensors on
+    ``device`` (token ids and labels as int64)."""
     out = {}
     for k, v in batch.items():
-        t = torch.as_tensor(np.asarray(v))
+        t = v if isinstance(v, torch.Tensor) else torch.as_tensor(
+            np.asarray(v))
         if not t.is_floating_point():
             t = t.long()
         out[k] = t.to(device)

@@ -66,11 +66,18 @@ def _mesh():
     return make_host_mesh(MESH, device_type="cpu")
 
 
+def replaced(arch, fields: dict):
+    """``arch`` with ``fields`` replaced; a dict value replaces fields of
+    the nested config of that name (``{"moe": {"capacity_factor": x}}``)."""
+    return dataclasses.replace(arch, **{
+        k: dataclasses.replace(getattr(arch, k), **v) if isinstance(v, dict)
+        else v for k, v in fields.items()})
+
+
 def _arch(case: dict):
     """The case's reduced arch, with its ``replace`` fields."""
     from repro_torch.configs import ARCHS
-    return dataclasses.replace(ARCHS[case["arch"]].reduced(),
-                               **case.get("replace", {}))
+    return replaced(ARCHS[case["arch"]].reduced(), case.get("replace", {}))
 
 
 def _model(case: dict, policy):

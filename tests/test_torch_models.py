@@ -261,7 +261,9 @@ def test_port_sources_import_neither_jax_nor_repro():
                    "configs/deepseek_67b.py", "training/__init__.py",
                    "training/data.py", "training/optimizer.py",
                    "training/compression.py", "training/train_step.py",
-                   "training/checkpoint.py", "launch/train.py"):
+                   "training/checkpoint.py", "launch/train.py",
+                   "launch/specs.py", "launch/dryrun.py",
+                   "launch/roofline.py", "launch/report.py"):
         assert os.path.join(pkg, module) in paths, module
     bad = []
     for p in paths:

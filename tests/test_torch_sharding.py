@@ -10,7 +10,6 @@ ranks on a 2x2 ``("data", "model")`` mesh run the reduced models under
 their policies (one spawn for every case) and are held against the JAX
 package's ``mesh=None`` results at the parity tests' tolerances.
 """
-import dataclasses
 import os
 from types import SimpleNamespace
 
@@ -218,6 +217,32 @@ def test_placements_follow_spec_on_two_mesh_axes(fake_world):
         pol.placements_of(PartitionSpec(("data", "pod")))
 
 
+def test_placements_skip_mesh_dims_of_one_rank():
+    """As :meth:`pin` does, a spec shards only over mesh dims of more than
+    one rank, so on the card's 1x1 mesh every parameter is replicated."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    pol = ShardingPolicy(mesh=SimpleNamespace(
+        mesh_dim_names=("data", "model"), shape=(1, 4)))
+    assert pol.placements_of(PartitionSpec("data", "model")) == (
+        Replicate(), Shard(1))
+    assert pol.placements_of(PartitionSpec(("data", "model"), None)) == (
+        Replicate(), Shard(0))
+    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=1)
+    try:
+        mesh = tmesh.make_host_mesh([("data", 1), ("model", 1)],
+                                    device_type="cpu")
+        arch = ARCHS["qwen2-7b"].reduced()
+        pol = make_policy(arch, SHAPES["decode_32k"], mesh)
+        assert pol.rules["qheads"] == ("model",)
+        m = Model(arch, device="meta", policy=pol).distribute()
+        placements = {tuple(p.placements) for p in m.parameters()
+                      if isinstance(p, DTensor)}
+        assert placements == {(Replicate(), Replicate())}
+    finally:
+        dist.destroy_process_group()
+
+
 def test_pin_honours_only_dims_the_extent_divides(fake_world):
     mesh = _device_mesh("pod")
     pol = make_policy(ARCHS["qwen2-7b"], SHAPES["decode_32k"], mesh)
@@ -347,17 +372,17 @@ def test_null_policy_paths_are_unchanged():
 # numerics across 4 gloo ranks
 B, PROMPT, STEPS, MAX_SEQ = 4, 16, 4, 32
 QWEN_MQA = {"num_kv_heads": 1}   # 2*KV*hd < d: prefill picks context mode
+# context mode for scout too, and 8 rows an expert for 64 prompt tokens:
+# the global dispatch drops tokens, so its token order decides which
+SCOUT_DROPS = {"num_kv_heads": 1, "moe": {"capacity_factor": 0.25}}
 
 
-def _jax(name: str, replace=None):
-    jarch = JAX_ARCHS[name].reduced()
-    if replace:
-        jarch = dataclasses.replace(jarch, **replace)
-    jm = JaxModel(jarch, JaxPolicy(mesh=None), param_dtype=jnp.float32)
+def _jax(name: str, replace=None, dispatch: str = "auto"):
+    jarch = _torch_ranks.replaced(JAX_ARCHS[name].reduced(), replace or {})
+    jm = JaxModel(jarch, JaxPolicy(mesh=None), param_dtype=jnp.float32,
+                  moe_dispatch=dispatch)
     params = jax.jit(jm.init)(jax.random.key(0))
-    arch = ARCHS[name].reduced()
-    if replace:
-        arch = dataclasses.replace(arch, **replace)
+    arch = _torch_ranks.replaced(ARCHS[name].reduced(), replace or {})
     weights = {k: v.clone() for k, v in from_jax_params(
         arch, jax.tree.map(np.asarray, params)).items()}
     return jm, params, weights
@@ -375,7 +400,17 @@ SERVE_CASES = [
     ("qwen2-7b", QWEN_MQA, "prefill", True, 8),
     ("zamba2-7b", None, "decode", False, 0),
     ("llama4-scout-17b-a16e", None, "decode", False, 0),
+    ("llama4-scout-17b-a16e", SCOUT_DROPS, "prefill", True, 0),
 ]
+CONTEXT = {("qwen2-7b", "prefill", True),
+           ("llama4-scout-17b-a16e", "prefill", True)}
+
+
+def _jax_dispatch(name: str, kind: str, replace) -> str:
+    """The reference's MoE dispatch for a case: a context-mode policy
+    (its seq rule set) picks the global one, which ``mesh=None`` would
+    not pick of itself."""
+    return "global" if (name, kind, bool(replace)) in CONTEXT else "auto"
 
 
 @pytest.fixture(scope="module")
@@ -387,7 +422,8 @@ def served(tmp_path_factory):
         0, 512, size=(B, PROMPT + STEPS)).astype(np.int32)
     cases, models = [], []
     for name, replace, kind, forward, generate in SERVE_CASES:
-        jm, params, weights = _jax(name, replace)
+        jm, params, weights = _jax(name, replace,
+                                   _jax_dispatch(name, kind, replace))
         models.append((jm, params))
         cases.append({"arch": name, "replace": replace or {}, "kind": kind,
                       "seq_len": MAX_SEQ if kind == "decode" else PROMPT,
@@ -433,8 +469,8 @@ def test_sharded_serving_matches_jax(served, index):
     name, replace, kind, forward, generate = SERVE_CASES[index]
     assert got["placed"]
     # both attention modes stay covered
-    assert got["mode"] == {("qwen2-7b", "prefill", True): "context"}.get(
-        (name, kind, bool(replace)), "head_tp")
+    assert got["mode"] == ("context" if (name, kind, bool(replace))
+                           in CONTEXT else "head_tp")
     if forward:
         assert _rel_err(got["forward"].numpy(), want["forward"]) < REL_TOL
     assert len(got["steps"]) == STEPS + 1
@@ -445,6 +481,21 @@ def test_sharded_serving_matches_jax(served, index):
         assert np.array_equal(got["generate"], want["generate"])
     # a prefill over 4 ranks moves data: its collectives were counted
     assert sum(got["prefill_comms"].values()) > 0
+
+
+def test_sharded_moe_global_dispatch_drops_tokens(served):
+    """The context-mode scout case is one that capacity decides: the
+    reference's forward at a capacity that drops nothing differs from its
+    forward at the case's, which the port matched on 4 ranks."""
+    index = SERVE_CASES.index(("llama4-scout-17b-a16e", SCOUT_DROPS,
+                               "prefill", True, 0))
+    assert served[0][index]["mode"] == "context"
+    whole = dict(SCOUT_DROPS, moe={"capacity_factor": 8.0})
+    jm, params, _ = _jax("llama4-scout-17b-a16e", whole, "global")
+    tokens = np.random.default_rng(3).integers(
+        0, 512, size=(B, PROMPT + STEPS)).astype(np.int32)
+    undropped = np.asarray(jax.jit(jm.forward)(params, jnp.asarray(tokens)))
+    assert _rel_err(undropped, served[1][index]["forward"]) > 100 * REL_TOL
 
 
 def test_sharded_moe_runs_expert_parallel(served):
