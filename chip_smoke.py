@@ -177,7 +177,12 @@ Phases, each printing one JSON line; any failure exits non-zero:
               both ways.  Then granite-3-2b at full width (8 x 256) trains
               3 steps without a policy and, its state freed, 3 from the
               same seed under the training policy: losses within 1e-3
-              relative, step times, peak memory and collectives.
+              relative, step times, peak memory and collectives.  Then
+              granite-3-2b at full width and SHARD_INT8_LAYERS layers
+              trains 3 steps with int8 error-feedback compression the same
+              two ways: losses within 1e-3 relative and the err buffers,
+              gathered into the reference's tree, within SHARD_ERR_ATOL
+              of the unsharded run's (one line with both).
 15. dryrun  -- the dry-run and roofline (launch/specs.py, dryrun.py,
               roofline.py) held against the card's own steps.  Three card
               cells, each counted on meta over the 1x1 mesh (one-rank
@@ -198,8 +203,14 @@ Phases, each printing one JSON line; any failure exits non-zero:
               train step's from its plain count), wall over bound, the
               plain path's bounds beside them, and the roofline fraction
               (2ND, 6ND for training, over wall x 989e12).  Then the
-              production cells qwen2-7b x decode_32k and llama4-scout x
-              train_4k on the 256-rank pod mesh, each
+              production cells on the 256-rank pod mesh (DRYRUN_PRODUCTION:
+              qwen2-7b x decode_32k, llama4-scout x train_4k, and the
+              cells the card's torch once refused: mamba2-130m x
+              prefill_32k (the causal conv's halo on sequence shards),
+              x train_4k (the halo's backward), x decode_32k (the SSD
+              step and out-projection on head-dim shards) and
+              granite-3-2b x train_4k (a tied table's two gradients)),
+              all started together, each
               through python -m repro_torch.launch.dryrun in a subprocess
               on a fake group (no card visible): each must end ok; its
               roofline row, memory, collectives by kind and seconds are
@@ -220,6 +231,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import gc
 import itertools
 import json
@@ -3341,6 +3353,10 @@ def phase_train(torch, card, seed: int) -> None:
 SHARD_MESH = (("data", 1), ("model", 1))   # one card: the 1x1 mesh
 SHARD_TRAIN_STEPS = 3
 SHARD_LOSS_RTOL = 1e-3
+# int8 error feedback: fp32 err trees of both runs fit beside the train
+# state at this depth (at 40 layers they would not)
+SHARD_INT8_LAYERS = 8
+SHARD_ERR_ATOL = 1e-6
 
 
 def _comm_counts(mode) -> dict:
@@ -3481,16 +3497,21 @@ def _shard_serve(torch, card, name: str, mesh, seed: int,
     return {"failures": fails, "launches": sharded["launches"]}
 
 
-def _shard_train_way(torch, arch, policy, device: str) -> dict:
+def _shard_train_way(torch, arch, policy, device: str,
+                     compression=None) -> dict:
     """SHARD_TRAIN_STEPS steps of granite-3-2b at full width in bf16 on
-    the plain attention (the launcher's setup, with ``policy``), then one
-    more under ``CommDebugMode`` for the collectives of a step."""
+    the plain attention (the launcher's setup, with ``policy`` and
+    ``compression``), then one more under ``CommDebugMode`` for the
+    collectives of a step.  With compression, ``err`` holds the error
+    buffers after the counted steps, the reference tree's leaves (gathered
+    whole) on the host."""
     from torch.distributed.tensor.debug import CommDebugMode
     from repro_torch.models import Model
     from repro_torch.training import data as data_mod
     from repro_torch.training import optimizer as opt
+    from repro_torch.training.checkpoint import _leaves
     from repro_torch.training.train_step import (init_train_state,
-                                                 make_train_step)
+                                                 make_train_step, state_tree)
     torch.cuda.reset_peak_memory_stats()
     model = Model(arch, device=device, impl="plain", dtype=torch.bfloat16,
                   policy=policy)
@@ -3498,7 +3519,7 @@ def _shard_train_way(torch, arch, policy, device: str) -> dict:
                           total_steps=TRAIN_STEPS)
     state = init_train_state(
         model, torch.Generator(device=device).manual_seed(0), cfg)
-    step_fn = make_train_step(model, cfg)
+    step_fn = make_train_step(model, cfg, grad_compression=compression)
     dcfg = data_mod.for_arch(arch, TRAIN_S, TRAIN_B)
     losses, walls = [], []
     for i in range(SHARD_TRAIN_STEPS):
@@ -3510,22 +3531,55 @@ def _shard_train_way(torch, arch, policy, device: str) -> dict:
         walls.append(time.monotonic() - t0)
         losses.append(float(metrics["loss"]))
     peak = torch.cuda.max_memory_allocated()
+    err = ([t.cpu() for t in _leaves(state_tree(model, state)["err"])]
+           if compression else None)
     with CommDebugMode() as comms:
         state, _ = step_fn(state, data_mod.batch_at_step(
             dcfg, SHARD_TRAIN_STEPS))
     out = {"losses": losses, "step_s": walls,
-           "collectives_per_step": _comm_counts(comms), "peak_bytes": peak}
+           "collectives_per_step": _comm_counts(comms), "peak_bytes": peak,
+           "err": err}
     del model, state, step_fn
     gc.collect()
     torch.cuda.empty_cache()
     return out
 
 
+def _shard_train_int8(torch, card, arch, mesh, device: str) -> list:
+    """granite-3-2b at full width and SHARD_INT8_LAYERS layers trained with
+    int8 error feedback without a policy and under the training policy:
+    losses within SHARD_LOSS_RTOL, the err buffers within SHARD_ERR_ATOL."""
+    from repro_torch.configs.shapes import ShapeConfig
+    from repro_torch.sharding.policy import make_policy
+    arch = dataclasses.replace(arch, num_layers=SHARD_INT8_LAYERS)
+    plain = _shard_train_way(torch, arch, None, device, "int8")
+    policy = make_policy(arch, ShapeConfig("cli", TRAIN_S, TRAIN_B, "train"),
+                         mesh, training=True)
+    sharded = _shard_train_way(torch, arch, policy, device, "int8")
+    rel = max(abs(a - b) / abs(a) for a, b in
+              zip(plain["losses"], sharded["losses"]))
+    err = max(float((a - b).abs().max())
+              for a, b in zip(plain.pop("err"), sharded.pop("err")))
+    fails = []
+    if not rel <= SHARD_LOSS_RTOL:
+        fails.append(f"int8 train: losses {plain['losses']} / "
+                     f"{sharded['losses']} differ by {rel}")
+    if not err <= SHARD_ERR_ATOL:
+        fails.append(f"int8 train: err buffers differ by {err}")
+    emit("shard_train_int8", card=card["nvidia_smi"], arch=arch.name,
+         layers=arch.num_layers, batch=TRAIN_B, seq=TRAIN_S,
+         max_loss_rel_diff=rel, loss_rtol=SHARD_LOSS_RTOL,
+         max_err_abs_diff=err, err_atol=SHARD_ERR_ATOL, plain=plain,
+         sharded=sharded)
+    return fails
+
+
 def phase_shard(torch, card, seed: int, device: str = "cuda",
                 backend: str = "nccl", busy_of=_device_busy_ms) -> dict:
     """The sharding substrate on the card's 1x1 mesh: qwen2-7b and
     mamba2-130m served with and without the decode policy, granite-3-2b
-    trained with and without the training policy (module docstring)."""
+    trained with and without the training policy, without compression and
+    with int8 (module docstring)."""
     import shutil
     import tempfile
     import torch.distributed as dist
@@ -3554,10 +3608,13 @@ def phase_shard(torch, card, seed: int, device: str = "cuda",
         if not rel <= SHARD_LOSS_RTOL:
             fails.append(f"train: losses {plain['losses']} / "
                          f"{sharded['losses']} differ by {rel}")
+        for way in (plain, sharded):
+            del way["err"]
         emit("shard_train", card=card["nvidia_smi"], arch=arch.name,
              batch=TRAIN_B, seq=TRAIN_S, rules=policy.rules,
              max_loss_rel_diff=rel, loss_rtol=SHARD_LOSS_RTOL, plain=plain,
              sharded=sharded)
+        fails += _shard_train_int8(torch, card, arch, mesh, device)
     finally:
         dist.destroy_process_group()
         shutil.rmtree(tmp, ignore_errors=True)
@@ -3571,7 +3628,11 @@ def phase_shard(torch, card, seed: int, device: str = "cuda",
 # ---------------------------------------------------------------------------
 DRYRUN_ARGS_RTOL = 0.01    # dry-run argument bytes against the card's
 DRYRUN_PRODUCTION = (("qwen2-7b", "decode_32k", "pod"),
-                     ("llama4-scout-17b-a16e", "train_4k", "pod"))
+                     ("llama4-scout-17b-a16e", "train_4k", "pod"),
+                     ("mamba2-130m", "prefill_32k", "pod"),
+                     ("mamba2-130m", "train_4k", "pod"),
+                     ("mamba2-130m", "decode_32k", "pod"),
+                     ("granite-3-2b", "train_4k", "pod"))
 DRYRUN_WAIT_S = 600.0      # the production cells' subprocesses
 DRYRUN_REPS = 3            # timed steps of each card cell
 

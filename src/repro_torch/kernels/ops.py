@@ -82,8 +82,13 @@ def run_local(fn: Callable, mesh, args: Sequence, in_p: Sequence,
     """``fn`` on the local shards of ``args`` (each taken to its
     placements in ``in_p``, None for a non-tensor; a plain tensor counts
     as replicated), its outputs as DTensors of ``out_p`` and global
-    ``out_shapes``: ``to_local`` and ``from_local``, both differentiable."""
-    from torch.distributed.tensor import DTensor, Replicate
+    ``out_shapes``: ``to_local`` and ``from_local``, both differentiable.
+    An input replicated on a mesh dim over which the outputs are split
+    (sharded, or pending a sum) gets its gradient there as a pending sum:
+    each rank's local work sees only its part of the outputs."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+    split = [any(not o[i].is_replicate() for o in out_p)
+             for i in range(mesh.ndim)]
     local = []
     for a, p in zip(args, in_p):
         if p is None or a is None:
@@ -93,8 +98,12 @@ def run_local(fn: Callable, mesh, args: Sequence, in_p: Sequence,
             a = DTensor.from_local(a, mesh, [Replicate()] * mesh.ndim,
                                    run_check=False)
         a = redistribute(a, p)
-        local.append(_ContiguousGrad.apply(a.to_local())
-                     if a.requires_grad else a.to_local())
+        if not a.requires_grad:
+            local.append(a.to_local())
+            continue
+        grad_p = [Partial() if s and q.is_replicate() else q
+                  for s, q in zip(split, a.placements)]
+        local.append(_ContiguousGrad.apply(a.to_local(grad_placements=grad_p)))
     out = fn(*local)
     outs = out if isinstance(out, tuple) else (out,)
     wrapped = tuple(

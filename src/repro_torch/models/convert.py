@@ -17,7 +17,7 @@ reference's tree (and leaf order).
 from __future__ import annotations
 
 import itertools
-from typing import Any, Dict, Mapping, Optional, Union
+from typing import Any, Dict, List, Mapping, Optional, Union
 
 import numpy as np
 import torch
@@ -119,3 +119,22 @@ def to_jax_params(arch: ArchConfig, state_dict: Mapping[str, torch.Tensor],
         out["shared_attn"] = {name: leaf(f"shared_attn.{name}")[None]
                               for name in names("shared_attn.")}
     return out
+
+
+def leaf_groups(arch: ArchConfig, names) -> List[List[str]]:
+    """For each leaf of the reference's tree, the ``names`` (a ``Model``'s
+    parameter names, or any dict's keys under them) that
+    :func:`to_jax_params` stacks into that leaf, in stacking order."""
+    names = list(names)
+    groups: List[List[str]] = []
+
+    def walk(t):
+        if isinstance(t, dict):
+            for v in t.values():
+                walk(v)
+        else:
+            groups.append([names[i] for i in t.flatten().tolist()])
+
+    walk(to_jax_params(arch, {n: torch.tensor([i])
+                              for i, n in enumerate(names)}))
+    return groups

@@ -161,16 +161,48 @@ def heads_whole(policy, w: torch.Tensor, heads: str,
     return policy.pin(w, *logical)
 
 
+class _GradPlaced(torch.autograd.Function):
+    """Identity on a DTensor whose backward reduces a pending sum in the
+    gradient onto the input's own placement on that mesh dim (a
+    reduce-scatter where the input is sharded there); the gradient's other
+    mesh dims stay as they are."""
+
+    @staticmethod
+    def forward(ctx, w):
+        ctx.mesh, ctx.placements = w.device_mesh, tuple(w.placements)
+        return w.view_as(w)
+
+    @staticmethod
+    def backward(ctx, grad):
+        want = tuple(p if g.is_partial() else g
+                     for g, p in zip(grad.placements, ctx.placements))
+        if tuple(grad.placements) == want:
+            return grad
+        return grad.redistribute(ctx.mesh, want)
+
+
+def grad_placed(w: torch.Tensor) -> torch.Tensor:
+    """``w`` itself, where ``w`` is a DTensor that autograd records, its
+    gradient leaving no pending sum (:class:`_GradPlaced`): a weight used
+    twice (a tied embedding: lookup and head) then sums two gradients none
+    of which is pending.  DTensor in torch 2.11 cannot add a pending sum to
+    a sharded gradient (it asks for a Shard -> Partial redistribute)."""
+    if is_dtensor(w) and w.requires_grad and torch.is_grad_enabled():
+        return _GradPlaced.apply(w)
+    return w
+
+
 def embed(tokens: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
     """Rows of ``table``.  A DTensor table split over more than one rank
     goes through ``F.embedding``, whose sharding rule keeps a vocab-sharded
     table sharded (the result is pending a masked sum: pin it at once);
     any other table is indexed, whose backward sums a row's gradients in
-    the order the plain model does."""
+    the order the plain model does.  A sharded table's gradient leaves the
+    lookup on the table's placements (:func:`grad_placed`)."""
     if is_dtensor(table) and any(
             p.is_shard() and n > 1
             for p, n in zip(table.placements, table.device_mesh.shape)):
-        return F.embedding(tokens, table)
+        return F.embedding(tokens, grad_placed(table))
     return table[tokens]
 
 

@@ -295,7 +295,8 @@ class Model(nn.Module):
 
     def head(self, h: torch.Tensor) -> torch.Tensor:
         h = layers.rms_norm(h, self.final_norm, self.arch.norm_eps)
-        table = self.embed.T if self.arch.tie_embeddings else self.lm_head
+        table = (layers.grad_placed(self.embed).T if self.arch.tie_embeddings
+                 else self.lm_head)
         return self.policy.pin(layers.logits(h, table),
                                "batch", "seq", "vocab")
 

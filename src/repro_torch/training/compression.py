@@ -11,14 +11,19 @@ a ``torch.distributed`` process group: the scale is all-reduced (MAX), the
 gradient requantized against it and the int8 payload all-reduced (SUM) as
 int32.  With no group it is the identity all-reduce of one process.
 Gradients and error buffers are trees of nested dicts of tensors, as the
-reference's pytrees; each leaf has its own scale.
+reference's pytrees; each leaf has its own scale.  ``quantize_layers``
+is that identity all-reduce for one leaf held as its layers' DTensors (a
+model under a mesh), the scale a collective max.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, Mapping, Optional, Tuple
+import functools
+from typing import Any, Callable, List, Mapping, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
+
+from repro_torch.sharding.policy import is_dtensor, redistribute
 
 
 def map_tree(fn: Callable, tree: Any, *rest: Any) -> Any:
@@ -42,6 +47,38 @@ def quantize_grad(g: torch.Tensor, err: torch.Tensor
 
 def dequantize_grad(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     return q.to(torch.float32) * scale
+
+
+def _amax(t: torch.Tensor) -> torch.Tensor:
+    """max |t| over the whole tensor; a DTensor's comes back replicated (an
+    all-reduce where ``t`` is sharded)."""
+    m = torch.max(torch.abs(t))
+    if is_dtensor(m):
+        from torch.distributed.tensor import Replicate
+        m = redistribute(m, [Replicate()] * m.device_mesh.ndim)
+    return m
+
+
+def quantize_layers(grads: Sequence[torch.Tensor],
+                    errs: Sequence[torch.Tensor]
+                    ) -> Tuple[List[torch.Tensor], List[torch.Tensor]]:
+    """The identity all-reduce of ``compressed_psum`` for one leaf of the
+    reference's tree held as the layers it stacks: ``grads`` and their
+    error buffers ``errs`` (DTensors on a mesh, each buffer on its
+    gradient's placements).  One scale for the leaf, the max of
+    |grad + err| over every layer, as the reference's stacked leaf has; the
+    elementwise work stays on each tensor's shards.  Returns (dequantized
+    fp32 grads, new error buffers), each on its input's placements."""
+    gcs = [g.to(torch.float32) + e for g, e in zip(grads, errs)]
+    amax = functools.reduce(torch.maximum, [_amax(gc) for gc in gcs])
+    scale = torch.clamp(amax, min=1e-12) / 127.0
+    out, new = [], []
+    for gc in gcs:
+        q = torch.clamp(torch.round(gc / scale), -127, 127).to(torch.int8)
+        deq = dequantize_grad(q, scale)
+        out.append(deq)
+        new.append(gc - deq)
+    return out, new
 
 
 def init_error_buffers(grads: Any) -> Any:

@@ -17,7 +17,10 @@ hold.
 A model under a mesh (``Model.policy``) trains on DTensor parameters and
 optimizer state; the grad norm and clipping are over the whole tensors,
 as under GSPMD, and the metrics come back as plain tensors (the same on
-every rank).  ``state_tree`` gathers a sharded state whole;
+every rank).  Its ``err`` is one fp32 DTensor per parameter, on the
+gradient's placements; each reference leaf still has one scale over all
+its layers (``compression.quantize_layers``).  ``state_tree`` gathers a
+sharded state whole, ``err`` stacked into the reference's tree too;
 ``train_state_placements`` gives the placements a checkpoint's tree is
 restored onto (``checkpoint.restore(placements=...)``).
 """
@@ -28,7 +31,8 @@ from typing import Any, Dict, Mapping, Optional, Tuple, Union
 import numpy as np
 import torch
 
-from repro_torch.models.convert import from_jax_params, to_jax_params
+from repro_torch.models.convert import (from_jax_params, leaf_groups,
+                                        to_jax_params)
 from repro_torch.models.model import Model
 from repro_torch.sharding.policy import is_dtensor, whole
 from repro_torch.training import compression as comp
@@ -83,8 +87,9 @@ def _stacked_specs(model: Model) -> Dict:
 
 def train_state_placements(model: Model, state: TrainState) -> Dict:
     """``(mesh, placements)`` per leaf of ``state_tree(model, state)`` (None
-    where a leaf stays a plain tensor: the step, the error buffers), for
-    ``checkpoint.restore(placements=...)``; all None without a mesh."""
+    where a leaf stays a plain tensor: the step), for
+    ``checkpoint.restore(placements=...)``; the error buffers are placed as
+    the parameters are.  All None without a mesh."""
     pol = model.policy
 
     def place(spec):
@@ -97,7 +102,8 @@ def train_state_placements(model: Model, state: TrainState) -> Dict:
     out = {"params": params, "opt": {"master": params, "m": params,
                                      "v": params, "step": None}}
     if "err" in state:
-        out["err"] = comp.map_tree(lambda t: None, state["err"])
+        out["err"] = (params if pol.mesh is not None else
+                      comp.map_tree(lambda t: None, state["err"]))
     return out
 
 
@@ -145,6 +151,25 @@ def make_train_step(model: Model, cfg: opt.AdamWConfig, *,
     named = list(model.named_parameters())
     names = [n for n, _ in named]
     weights = [p for _, p in named]
+    leaves = (leaf_groups(model.arch, names)
+              if grad_compression == "int8" and model.sharded else [])
+
+    def _compress_layers(grads, err):
+        """int8 error feedback on a mesh: each reference leaf's layers
+        quantized against one scale (``comp.quantize_layers``), ``err``
+        per parameter on its gradient's placements.  The gradients come
+        back in the order ``from_jax_params`` gives the unsharded path's,
+        the order the grad norm sums them in."""
+        if err is None:
+            err = {n: torch.zeros_like(g, dtype=torch.float32)
+                   for n, g in grads.items()}
+        out, new = {}, {}
+        for group in leaves:
+            deq, fresh = comp.quantize_layers([grads[n] for n in group],
+                                              [err[n] for n in group])
+            out.update(zip(group, deq))
+            new.update(zip(group, fresh))
+        return out, new
 
     def value_and_grad(batch):
         loss = model.loss(batch)
@@ -179,10 +204,9 @@ def make_train_step(model: Model, cfg: opt.AdamWConfig, *,
                 if state["params"][n] is not p:
                     p.copy_(state["params"][n])
         loss, grads = grads_of(batch_on(batch, model.device))
-        if grad_compression == "int8":
-            if model.sharded:
-                raise NotImplementedError(
-                    "grad_compression='int8' on a model under a mesh")
+        if grad_compression == "int8" and model.sharded:
+            grads, err = _compress_layers(grads, state.get("err"))
+        elif grad_compression == "int8":
             tree = to_jax_params(model.arch, grads)
             err = state.get("err")
             if err is None:
@@ -231,7 +255,9 @@ def state_tree(model: Model, state: TrainState,
                    "v": tree(o["v"]),
                    "step": o["step"] if device is None
                    else o["step"].to(device)}}
-    if "err" in state:
+    if "err" in state and model.sharded:
+        out["err"] = tree(state["err"])
+    elif "err" in state:
         out["err"] = (state["err"] if device is None else
                       comp.map_tree(lambda t: t.to(device), state["err"]))
     return out
@@ -260,7 +286,12 @@ def load_state_tree(model: Model, state: TrainState, tree: Dict
     for k in ("master", "m", "v"):
         copy(state["opt"][k], tree["opt"][k])
     state["opt"]["step"].copy_(torch.as_tensor(tree["opt"]["step"]))
-    if "err" in tree:
+    if "err" in tree and model.sharded:
+        params = state["params"]
+        state["err"] = {k: torch.zeros_like(params[k], dtype=torch.float32)
+                        for k in params}
+        copy(state["err"], tree["err"])
+    elif "err" in tree:
         state["err"] = comp.map_tree(
             lambda t: t.to(model.device, torch.float32, copy=True),
             tree["err"])

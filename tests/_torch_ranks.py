@@ -11,6 +11,7 @@ alone.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import datetime
 import os
@@ -92,6 +93,55 @@ def _counts(mode) -> dict:
     return {str(op): n for op, n in mode.get_comm_counts().items()}
 
 
+@contextlib.contextmanager
+def no_dtensor_pad():
+    """``torch.nn.functional.pad`` refuses a DTensor here, as DTensor in
+    torch 2.11 does (a sharded dim or not): the SSM's causal conv must run
+    on local shards."""
+    import torch.nn.functional as F
+    from torch.distributed.tensor import DTensor
+    pad = F.pad
+
+    def guarded(x, *args, **kwargs):
+        if isinstance(x, DTensor):
+            raise RuntimeError("F.pad of a DTensor")
+        return pad(x, *args, **kwargs)
+
+    F.pad = guarded
+    try:
+        yield
+    finally:
+        F.pad = pad
+
+
+@contextlib.contextmanager
+def counted(module, *names):
+    """Calls of ``module``'s functions ``names`` counted in the dict it
+    yields while the context lasts."""
+    calls = dict.fromkeys(names, 0)
+    saved = {n: getattr(module, n) for n in names}
+
+    def wrap(n):
+        def run(*args, **kwargs):
+            calls[n] += 1
+            return saved[n](*args, **kwargs)
+        return run
+
+    for n in names:
+        setattr(module, n, wrap(n))
+    try:
+        yield calls
+    finally:
+        for n, fn in saved.items():
+            setattr(module, n, fn)
+
+
+def _whole_state(state) -> dict:
+    """An SSM layer state's fields whole, with their placements."""
+    return {f: (t.full_tensor(), str(tuple(t.placements)))
+            for f, t in state._asdict().items()}
+
+
 def serve(rank: int, workdir: str) -> None:
     """Each case of ``serve_in.pt`` under its policy: full-sequence logits,
     the prefill's last logits and teacher-forced decode steps, greedy
@@ -101,6 +151,7 @@ def serve(rank: int, workdir: str) -> None:
     from torch.distributed.tensor.debug import CommDebugMode
 
     from repro_torch.configs.shapes import ShapeConfig
+    from repro_torch.models import ssm
     from repro_torch.serving import Engine, EngineConfig
     from repro_torch.sharding.policy import make_policy
     mesh = _mesh()
@@ -114,16 +165,25 @@ def serve(rank: int, workdir: str) -> None:
         res["placed"] = all(isinstance(p, DTensor) for p in m.parameters())
         tokens = case["tokens"]
         prompt = tokens[:, :case["prompt"]]
-        if case.get("forward"):
-            res["forward"] = m(tokens).full_tensor()
-        with CommDebugMode() as mode:
-            logits, cache = m.prefill(prompt, max_seq=case["max_seq"])
-        res["prefill_comms"] = _counts(mode)
-        steps = [logits.full_tensor()]
-        for i in range(case["steps"]):
-            pos = case["prompt"] + i
-            logits, cache = m.decode_step(cache, pos, tokens[:, pos:pos + 1])
-            steps.append(logits.full_tensor())
+        guard = no_dtensor_pad() if case.get("guard") else \
+            contextlib.nullcontext()
+        with guard, counted(ssm, "conv_and_tail", "_out_proj_local") as calls:
+            if case.get("forward"):
+                res["forward"] = m(tokens).full_tensor()
+            with CommDebugMode() as mode:
+                logits, cache = m.prefill(prompt, max_seq=case["max_seq"])
+            res["prefill_comms"] = _counts(mode)
+            if "ssm" in cache:
+                res["prefill_ssm"] = [_whole_state(st) for st in cache["ssm"]]
+            steps = [logits.full_tensor()]
+            for i in range(case["steps"]):
+                pos = case["prompt"] + i
+                logits, cache = m.decode_step(cache, pos,
+                                              tokens[:, pos:pos + 1])
+                steps.append(logits.full_tensor())
+            if "ssm" in cache:
+                res["decode_ssm"] = [_whole_state(st) for st in cache["ssm"]]
+        res["ssm_calls"] = dict(calls)
         res["steps"] = steps
         if case.get("generate"):
             eng = Engine(m, EngineConfig(max_batch=B,
@@ -197,3 +257,144 @@ def train(rank: int, workdir: str) -> None:
     res["restored_loss"] = float(met["loss"])
     if rank == 0:
         torch.save(res, os.path.join(workdir, "train_out.pt"))
+
+
+def halo(rank: int, workdir: str) -> None:
+    """Each case of ``halo_in.pt``: the whole ``x`` distributed with its
+    sequence dim sharded over the case's mesh dims, ``conv_and_tail`` on
+    it, and the gradients of ``sum(out * g)``; a case whose shards are too
+    short records the ``ValueError``."""
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+
+    from repro_torch.models import ssm
+    mesh = _mesh()
+    out = []
+    with no_dtensor_pad():
+        for case in torch.load(os.path.join(workdir, "halo_in.pt")):
+            places = [Shard(1) if on else Replicate() for on in case["seq_on"]]
+            x = distribute_tensor(case["x"], mesh, places).requires_grad_()
+            w = distribute_tensor(case["w"], mesh,
+                                  [Replicate()] * mesh.ndim).requires_grad_()
+            try:
+                y, tail = ssm.conv_and_tail(x, w)
+            except ValueError as e:
+                out.append({"error": str(e)})
+                continue
+            g = distribute_tensor(case["g"], mesh, places)
+            (y * g).sum().full_tensor().backward()
+            out.append({"out": y.full_tensor(), "tail": tail.full_tensor(),
+                        "out_placements": str(tuple(y.placements)),
+                        "tail_placements": str(tuple(tail.placements)),
+                        "x_grad": x.grad.full_tensor(),
+                        "w_grad": w.grad.full_tensor()})
+    if rank == 0:
+        torch.save(out, os.path.join(workdir, "halo_out.pt"))
+
+
+def train_cases(rank: int, workdir: str) -> None:
+    """Each case of ``train_cases_in.pt`` under the training policy with
+    ``F.pad`` refusing DTensors: ``steps`` steps (its ``compression``), the
+    state gathered whole after them, the rules and parameter placements;
+    with ``ckpt``, the tree saved (rank 0, unsharded), restored onto the
+    mesh with placements into a fresh state, that state gathered, and one
+    more step from each."""
+    from repro_torch.configs.shapes import ShapeConfig
+    from repro_torch.models import layers, ssm
+    from repro_torch.sharding.policy import make_policy
+    from repro_torch.training import checkpoint as ckpt
+    from repro_torch.training import data as data_mod
+    from repro_torch.training import optimizer as opt
+    from repro_torch.training.compression import map_tree
+    from repro_torch.training.train_step import (init_train_state,
+                                                 load_state_tree,
+                                                 make_train_step, state_tree,
+                                                 train_state_placements)
+    mesh = _mesh()
+    out = []
+    for case in torch.load(os.path.join(workdir, "train_cases_in.pt")):
+        arch = _arch(case)
+        B, S = case["batch"], case["seq_len"]
+        policy = make_policy(arch, ShapeConfig("t", S, B, "train"), mesh,
+                             training=True)
+        cfg = opt.AdamWConfig(**case["adamw"])
+        dcfg = data_mod.for_arch(arch, S, B)
+
+        def fresh():
+            m = _model({**case, "impl": "plain"}, policy)
+            st = init_train_state(m, None, cfg)
+            return m, st, make_train_step(
+                m, cfg, grad_compression=case.get("compression"))
+
+        res = {"rules": dict(policy.rules), "mode": policy.attn_mode}
+        with no_dtensor_pad(), counted(ssm, "conv_and_tail") as calls, \
+                counted(layers._GradPlaced, "backward") as placed:
+            m, state, step = fresh()
+            res["placements"] = {n: str(tuple(p.placements))
+                                 for n, p in m.named_parameters()}
+            losses, gnorms = [], []
+            for i in range(case["steps"]):
+                state, met = step(state, data_mod.batch_at_step(dcfg, i))
+                losses.append(float(met["loss"]))
+                gnorms.append(float(met["grad_norm"]))
+            res["losses"], res["gnorms"] = losses, gnorms
+            res["tree"] = map_tree(lambda t: t.clone(),
+                                   state_tree(m, state, device="cpu"))
+            if "err" in state:
+                res["err_placements"] = {n: str(tuple(e.placements))
+                                         for n, e in state["err"].items()}
+            if case.get("ckpt"):
+                ck = os.path.join(workdir, f"ck_{len(out)}")
+                if rank == 0:
+                    ckpt.save(ck, case["steps"], res["tree"])
+                dist.barrier()
+                batch = data_mod.batch_at_step(dcfg, case["steps"])
+                state, met = step(state, batch)
+                res["next_loss"] = float(met["loss"])
+                res["next_tree"] = state_tree(m, state, device="cpu")
+                m2, state2, step2 = fresh()
+                restored, _ = ckpt.restore(
+                    ck, state_tree(m2, {**state2, "err": state["err"]},
+                                   device="meta"),
+                    placements=train_state_placements(
+                        m2, {**state2, "err": state["err"]}))
+                res["restored_err_placed"] = str(
+                    restored["err"]["embed"].placements)
+                load_state_tree(m2, state2, restored)
+                res["restored_tree"] = map_tree(
+                    lambda t: t.clone(), state_tree(m2, state2, device="cpu"))
+                state2, met = step2(state2, batch)
+                res["restored_next_loss"] = float(met["loss"])
+                res["restored_next_tree"] = state_tree(m2, state2,
+                                                       device="cpu")
+        if case.get("quant"):
+            res["quant"] = _quantize_on_mesh(m, *case["quant"])
+        res["conv_calls"] = calls["conv_and_tail"]
+        res["grad_placed"] = placed["backward"]
+        out.append(res)
+    if rank == 0:
+        torch.save(out, os.path.join(workdir, "train_cases_out.pt"))
+
+
+
+def _quantize_on_mesh(model, grads: dict, errs: dict) -> tuple:
+    """``compression.quantize_layers`` over each reference leaf's layers of
+    ``grads`` and ``errs`` (per parameter name) distributed on the
+    parameters' placements -> (dequantized, new err) gathered whole as the
+    reference's trees."""
+    from torch.distributed.tensor import distribute_tensor
+
+    from repro_torch.models.convert import leaf_groups, to_jax_params
+    from repro_torch.training import compression as comp
+    params = dict(model.named_parameters())
+
+    def placed(t, n):
+        return distribute_tensor(t, params[n].device_mesh,
+                                 params[n].placements)
+
+    deq, new = {}, {}
+    for group in leaf_groups(model.arch, params):
+        d, e = comp.quantize_layers([placed(grads[n], n) for n in group],
+                                    [placed(errs[n], n) for n in group])
+        deq.update((n, t.full_tensor()) for n, t in zip(group, d))
+        new.update((n, t.full_tensor()) for n, t in zip(group, e))
+    return (to_jax_params(model.arch, deq), to_jax_params(model.arch, new))

@@ -538,7 +538,10 @@ def dryrun_phase(monkeypatch):
 
 
 def test_chip_smoke_dryrun_phase_rehearsal(dryrun_phase, capsys):
-    dryrun_phase((("qwen2-7b-reduced", "decode_32k", "pod"),))
+    import chip_smoke
+    production = tuple((a + "-reduced", s, m)
+                       for a, s, m in chip_smoke.DRYRUN_PRODUCTION)
+    dryrun_phase(production)
     by = {}
     for ln in capsys.readouterr().out.splitlines():
         if ln.startswith("{"):
@@ -563,10 +566,14 @@ def test_chip_smoke_dryrun_phase_rehearsal(dryrun_phase, capsys):
         assert c["bound_s"] < c["plain_path_bound_s"]
         assert c["memory_s"] == c["kernel_path"]["bytes"] / 3.35e12
     assert cells[2]["bound_s"] == cells[2]["plain_path_bound_s"]
-    prod = by["dryrun_production"][0]
-    assert prod["ok"] and prod["returncode"] == 0 and prod["chips"] == 256
-    assert prod["roofline"]["dominant"] in ("compute", "memory",
-                                            "collective")
+    # every production cell, the card's torch's once-refused ones too
+    assert [tuple(p["cell"]) for p in by["dryrun_production"]] == list(
+        production)
+    for prod in by["dryrun_production"]:
+        assert prod["ok"] and prod["returncode"] == 0
+        assert prod["chips"] == 256
+        assert prod["roofline"]["dominant"] in ("compute", "memory",
+                                                "collective")
     assert by["dryrun_phase"][0]["failures"] == []
 
 

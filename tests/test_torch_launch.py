@@ -359,6 +359,27 @@ def test_train_launcher_on_two_gloo_ranks_prints_the_reference_lines(
     assert [ln.split()[1] for ln in lines[1:-1]] == ["3"]
 
 
+def test_train_launcher_compresses_int8_on_two_gloo_ranks():
+    """--model-parallel 2 --grad-compression int8 on two ranks: int8 error
+    feedback under the mesh prints the reference's lines, with the
+    one-device int8 run's losses (to 4 decimals)."""
+    common = ("--arch", "granite-3-2b", "--reduced", "--device", "cpu",
+              "--seq-len", "32", "--global-batch", "4", "--log-every", "1",
+              "--grad-compression", "int8", "--steps", "3")
+    ranks = _train_ranks(2, *common, "--model-parallel", "2")
+    for rc, _, err in ranks:
+        assert rc == 0, err
+    lines = ranks[0][1].splitlines()
+    assert [ln.split()[1] for ln in lines[:-1]] == ["0", "1", "2"]
+    assert all(STEP_LINE.fullmatch(ln) for ln in lines[:-1]), lines
+    assert lines[-1] == "done."
+    assert ranks[1][1] == ""
+    one = _train(*common)
+    assert one.returncode == 0, one.stderr
+    loss = [ln.split()[3] for ln in one.stdout.splitlines()[:-1]]
+    assert [ln.split()[3] for ln in lines[:-1]] == loss
+
+
 def test_train_launcher_builds_no_mesh_on_one_device():
     import torch.distributed as dist
 

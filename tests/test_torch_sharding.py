@@ -393,6 +393,9 @@ def _rel_err(got, want) -> float:
     return float(np.max(np.abs(got - want)) / (np.max(np.abs(want)) + 1e-9))
 
 
+# 3 SSM heads of 32 rows: the heads do not divide the model axis, the head
+# dim does, so ssm_pdim takes it (mamba2-130m's 24 heads on a pod's 16)
+SSM_ODD = {"d_model": 48, "ssm": {"head_dim": 32}}
 SERVE_CASES = [
     # (arch, replace, kind, forward, generate)
     ("qwen2-7b", None, "prefill", True, 0),
@@ -401,9 +404,21 @@ SERVE_CASES = [
     ("zamba2-7b", None, "decode", False, 0),
     ("llama4-scout-17b-a16e", None, "decode", False, 0),
     ("llama4-scout-17b-a16e", SCOUT_DROPS, "prefill", True, 0),
+    # an attention-free model takes the context rules: its sequence is
+    # sharded over "model" (prefill), its head dim too where it decodes
+    ("mamba2-130m", None, "prefill", True, 0),
+    ("mamba2-130m", SSM_ODD, "decode", False, 0),
 ]
 CONTEXT = {("qwen2-7b", "prefill", True),
-           ("llama4-scout-17b-a16e", "prefill", True)}
+           ("llama4-scout-17b-a16e", "prefill", True),
+           ("mamba2-130m", "prefill", False), ("mamba2-130m", "decode", True)}
+SSM_CASES = [i for i, c in enumerate(SERVE_CASES) if c[0] == "mamba2-130m"]
+
+
+def _case_id(case) -> str:
+    name, replace, kind = case[:3]
+    tag = "oddheads-" if replace is SSM_ODD else "mqa-" if replace else ""
+    return f"{name}-{tag}{kind}"
 
 
 def _jax_dispatch(name: str, kind: str, replace) -> str:
@@ -430,7 +445,9 @@ def served(tmp_path_factory):
                       "weights": weights,
                       "tokens": torch.from_numpy(tokens.astype(np.int64)),
                       "prompt": PROMPT, "max_seq": MAX_SEQ, "steps": STEPS,
-                      "forward": forward, "generate": generate})
+                      "forward": forward, "generate": generate,
+                      # the SSM cases run with F.pad refusing DTensors
+                      "guard": name == "mamba2-130m"})
     torch.save(cases, os.path.join(work, "serve_in.pt"))
     ranks = _torch_ranks.start(_torch_ranks.serve, work)
     want = []
@@ -442,6 +459,8 @@ def served(tmp_path_factory):
         prefill = jax.jit(lambda p, t: jm.prefill(p, t, max_seq=MAX_SEQ))
         decode = jax.jit(jm.decode_step)
         logits, cache = prefill(params, jnp.asarray(tokens[:, :PROMPT]))
+        if "ssm" in cache:
+            w["prefill_ssm"] = jax.tree.map(np.asarray, cache["ssm"])
         steps = [np.asarray(logits)]
         for i in range(STEPS):
             logits, cache = decode(
@@ -449,6 +468,8 @@ def served(tmp_path_factory):
                 jnp.asarray(tokens[:, PROMPT + i:PROMPT + i + 1]))
             steps.append(np.asarray(logits))
         w["steps"] = steps
+        if "ssm" in cache:
+            w["decode_ssm"] = jax.tree.map(np.asarray, cache["ssm"])
         if case["generate"]:
             eng = JaxEngine(jm, params, JaxEngineConfig(max_batch=B,
                                                         max_seq=MAX_SEQ))
@@ -462,8 +483,7 @@ def served(tmp_path_factory):
 
 
 @pytest.mark.parametrize("index", range(len(SERVE_CASES)),
-                         ids=[f"{c[0]}-{'mqa-' if c[1] else ''}{c[2]}"
-                              for c in SERVE_CASES])
+                         ids=[_case_id(c) for c in SERVE_CASES])
 def test_sharded_serving_matches_jax(served, index):
     got, want = served[0][index], served[1][index]
     name, replace, kind, forward, generate = SERVE_CASES[index]
@@ -481,6 +501,44 @@ def test_sharded_serving_matches_jax(served, index):
         assert np.array_equal(got["generate"], want["generate"])
     # a prefill over 4 ranks moves data: its collectives were counted
     assert sum(got["prefill_comms"].values()) > 0
+
+
+def _assert_states_close(got, want) -> None:
+    """The port's per-layer SSM states (whole) against the reference's
+    stacked ones, at the serve tolerance."""
+    assert len(got) == want.ssd.shape[0]
+    for i, layer in enumerate(got):
+        for field, (t, _) in layer.items():
+            assert _rel_err(t.numpy(), getattr(want, field)[i]) < REL_TOL, (
+                i, field)
+
+
+@pytest.mark.parametrize("index", SSM_CASES,
+                         ids=[_case_id(SERVE_CASES[i]) for i in SSM_CASES])
+def test_sharded_ssm_runs_on_its_shards(served, index):
+    """The Mamba2 cases ran sharded as the rules say: the prefill's causal
+    conv on sequence shards (the halo; ``F.pad`` refused DTensors), and in
+    the odd-heads case each decode step's SSD and out-projection on
+    head-dim shards.  The states handed to decode (conv tails, SSD state)
+    and those after the decode steps are the reference's."""
+    got, want = served[0][index], served[1][index]
+    rules = got["rules"]
+    assert rules["seq"] == ("model",) and rules["batch"] == ("data",)
+    layers = len(got["prefill_ssm"])
+    assert got["ssm_calls"]["conv_and_tail"] == 3 * layers * (
+        2 if SERVE_CASES[index][3] else 1)        # forward, then prefill
+    tail = dict((f, p) for f, (_, p) in got["prefill_ssm"][0].items())
+    assert tail["conv_x"] == "(Shard(dim=0), Replicate())"
+    if SERVE_CASES[index][1] is SSM_ODD:
+        assert rules["ssm_heads"] is None and rules["ssm_pdim"] == ("model",)
+        assert got["ssm_calls"]["_out_proj_local"] == layers * STEPS
+        assert dict((f, p) for f, (_, p) in got["decode_ssm"][0].items())[
+            "ssd"] == "(Shard(dim=0), Shard(dim=2))"
+    else:
+        assert rules["ssm_heads"] == ("model",)
+        assert got["ssm_calls"]["_out_proj_local"] == 0
+    _assert_states_close(got["prefill_ssm"], want["prefill_ssm"])
+    _assert_states_close(got["decode_ssm"], want["decode_ssm"])
 
 
 def test_sharded_moe_global_dispatch_drops_tokens(served):
@@ -504,6 +562,184 @@ def test_sharded_moe_runs_expert_parallel(served):
     got = served[0][4]
     assert got["rules"]["experts"] == ("data",)
     assert got["rules"]["expert_ff"] == ("model",)
+
+
+# ---------------------------------------------------------------------------
+# training on 4 gloo ranks: the paths torch 2.11's DTensor refused
+# (a sequence-sharded Mamba2, a tied embedding in context mode) and int8
+# error feedback under the mesh, its err buffers through a checkpoint
+TRAIN_CASES = [
+    # (id, arch, replace, compression, steps, checkpoint)
+    ("mamba2-seq-sharded", "mamba2-130m", None, None, 1, False),
+    # 3 query heads do not divide the model axis: context mode, as
+    # gemma-2b's 8 on a pod's 16, its tied table vocab-sharded
+    ("gemma-context-tied", "gemma-2b", {"num_heads": 3}, None, 2, False),
+    # test_torch_train_knobs.py's int8 case, on the mesh
+    ("gemma-int8", "gemma-2b", None, "int8", 3, True),
+]
+
+
+@pytest.fixture(scope="module")
+def trained_cases(tmp_path_factory):
+    """The train cases on 4 ranks (one spawn) and the reference's states
+    and metrics after each step at ``mesh=None`` (one step more for a case
+    with a checkpoint)."""
+    from repro.training import data as jdata
+    from repro.training import optimizer as jopt
+    from test_torch_training import B as TB
+    from test_torch_training import JCFG, S as TS
+    work = str(tmp_path_factory.mktemp("train_case_ranks"))
+    cases, want = [], []
+    for _, name, replace, compression, steps, ck in TRAIN_CASES:
+        jm, params, weights = _jax(name, replace)
+        cases.append({"arch": name, "replace": replace or {},
+                      "compression": compression, "steps": steps,
+                      "ckpt": ck, "batch": TB, "seq_len": TS,
+                      "weights": weights,
+                      "adamw": {"lr": JCFG.lr,
+                                "warmup_steps": JCFG.warmup_steps,
+                                "total_steps": JCFG.total_steps}})
+        if compression:
+            cases[-1]["quant"] = _quant_inputs(name, params)
+        want.append((jm, params, compression, steps + ck))
+    torch.save(cases, os.path.join(work, "train_cases_in.pt"))
+    ranks = _torch_ranks.start(_torch_ranks.train_cases, work)
+    ref = []
+    for jm, params, compression, n in want:
+        step = jax.jit(jts.make_train_step(jm, JCFG,
+                                           grad_compression=compression))
+        dcfg = jdata.for_arch(jm.arch, TS, TB)
+        state = {"params": params, "opt": jopt.init_state(params)}
+        metrics, states = [], []
+        for i in range(n):
+            batch = {k: jnp.asarray(v)
+                     for k, v in jdata.batch_at_step(dcfg, i).items()}
+            state, met = step(state, batch)
+            metrics.append(jax.tree.map(float, met))
+            states.append(jax.tree.map(np.asarray, state))
+        ref.append((metrics, states))
+    _torch_ranks.wait(ranks, timeout_s=2 * _torch_ranks.TIMEOUT_S)
+    assert not dist.is_initialized()
+    return torch.load(os.path.join(work, "train_cases_out.pt"),
+                      weights_only=False), ref
+
+
+def _quant_inputs(name: str, params) -> tuple:
+    """Seeded gradients and error buffers of the reference tree's shapes,
+    per port parameter name (the reference's stacked trees rebuild them)."""
+    rng = np.random.default_rng(11)
+    arch = ARCHS[name].reduced()
+
+    def draw(scale):
+        return from_jax_params(arch, jax.tree.map(
+            lambda p: (rng.standard_normal(p.shape) * scale).astype(
+                np.float32), params))
+
+    return draw(1e-2), draw(1e-4)
+
+
+# int8 error feedback: an element of (grad + err) within rounding of a
+# quantization boundary rounds either way under another summation order
+# (the quantizer's one discontinuity).  Its err then moves by one step of
+# its leaf's scale (at most twice the leaf's largest |err|) and its
+# parameter by at most 2 lr a step, AdamW's bound on any update.  At most
+# FLIP_SHARE of the elements may be such flips; all others stay within the
+# parity tolerances.
+FLIP_SHARE = 1e-3
+
+
+def _assert_int8_close(want, got, bound, total: int) -> None:
+    """``got``'s leaves within RTOL/ATOL of ``want``'s but for int8
+    rounding flips, each within ``bound(a, b)`` (a leaf pair)."""
+    from test_torch_training import ATOL, RTOL, _leaves
+    flips = 0
+    for a, b in zip(_leaves(want), _leaves(got)):
+        assert a.shape == b.shape and a.dtype == b.dtype
+        off = np.abs(b - a) > ATOL + RTOL * np.abs(a)
+        assert (np.abs(b - a)[off] <= bound(a, b)).all()
+        flips += int(off.sum())
+    assert flips <= FLIP_SHARE * total, flips
+
+
+@pytest.mark.parametrize("index", range(len(TRAIN_CASES)),
+                         ids=[c[0] for c in TRAIN_CASES])
+def test_sharded_training_cases_match_jax(trained_cases, index):
+    from test_torch_training import (GNORM_RTOL, LOSS_RTOL,
+                                     _assert_params_close,
+                                     _assert_trees_close)
+    got = trained_cases[0][index]
+    metrics, states = trained_cases[1][index]
+    case_id, name, _, compression, steps, _ = TRAIN_CASES[index]
+    for i in range(steps):
+        np.testing.assert_allclose(got["losses"][i], metrics[i]["loss"],
+                                   rtol=LOSS_RTOL)
+        np.testing.assert_allclose(got["gnorms"][i],
+                                   metrics[i]["grad_norm"], rtol=GNORM_RTOL)
+    lr_sum = sum(m["lr"] for m in metrics[:steps])
+    want = states[steps - 1]
+    if compression:
+        total = sum(x.size for x in jax.tree.leaves(want["params"]))
+        _assert_int8_close(want["params"], got["tree"]["params"],
+                           lambda a, b: 2 * lr_sum, total)
+        _assert_int8_close(want["err"], got["tree"]["err"], lambda a, b: (
+            2 * max(np.abs(a).max(), np.abs(b).max()) * (1 + 1e-3)), total)
+        assert got["err_placements"] == got["placements"]
+    else:
+        _assert_params_close(want, got["tree"], lr_sum)
+        # the first moments: the gradients themselves
+        _assert_trees_close(want["opt"]["m"], got["tree"]["opt"]["m"])
+    rules = got["rules"]
+    if name == "mamba2-130m":
+        # the sequence is sharded, so every causal conv ran on its shards
+        assert rules["seq"] == ("model",) and rules["batch"] == ("data",)
+        assert got["conv_calls"] > 0
+    if case_id == "gemma-context-tied":
+        assert got["mode"] == "context" and rules["vocab"] == ("model",)
+        assert got["placements"]["embed"] == "(Shard(dim=1), Shard(dim=0))"
+        # the tied table's two gradients were placed before they summed
+        assert got["grad_placed"] >= 2 * steps
+
+
+def test_sharded_int8_quantizes_as_the_reference(trained_cases):
+    """On the same gradients and error buffers, the mesh's per-layer int8
+    quantization (one scale per reference leaf, a collective max; each
+    layer on its parameter's placements) is the reference's
+    ``compressed_psum`` of the stacked trees, bit for bit."""
+    from repro.training import compression as jcomp
+    index = next(i for i, c in enumerate(TRAIN_CASES) if c[3])
+    got = trained_cases[0][index]["quant"]
+    name = TRAIN_CASES[index][1]
+    arch = ARCHS[name].reduced()
+    from repro_torch.models.convert import to_jax_params
+    grads, errs = (to_jax_params(arch, t) for t in _quant_inputs(
+        name, jax.tree.map(np.asarray, _jax(name)[1])))
+    want = jcomp.compressed_psum(jax.tree.map(jnp.asarray, grads),
+                                 jax.tree.map(jnp.asarray, errs), None)
+    for w, g in zip(want, got):
+        wl, gl = jax.tree.leaves(w), jax.tree.leaves(
+            jax.tree.map(lambda t: t.numpy(), g))
+        assert len(wl) == len(gl)
+        for a, b in zip(wl, gl):
+            assert np.array_equal(np.asarray(a), b)
+
+
+def test_sharded_int8_err_survives_a_checkpoint(trained_cases):
+    """The err buffers of the int8 case, saved unsharded and restored onto
+    the mesh with placements, are the saved ones leaf for leaf, and the
+    next step from them is the next step of the run that saved them (and
+    the reference's)."""
+    from test_torch_training import LOSS_RTOL, _assert_trees_close
+    index = next(i for i, c in enumerate(TRAIN_CASES) if c[5])
+    got = trained_cases[0][index]
+    metrics = trained_cases[1][index][0]
+    steps = TRAIN_CASES[index][4]
+    assert got["restored_err_placed"] == "(Shard(dim=1), Shard(dim=0))"
+    _assert_trees_close(got["tree"], got["restored_tree"], rtol=0, atol=0)
+    assert got["restored_next_loss"] == got["next_loss"]
+    _assert_trees_close(got["next_tree"]["err"],
+                        got["restored_next_tree"]["err"], rtol=0, atol=0)
+    np.testing.assert_allclose(got["next_loss"], metrics[steps]["loss"],
+                               rtol=LOSS_RTOL)
 
 
 # ---------------------------------------------------------------------------
@@ -579,7 +815,26 @@ def test_chip_smoke_shard_phase_rehearsal(shard_phase, capsys):
     train = by["shard_train"][0]
     assert train["max_loss_rel_diff"] <= 1e-3
     assert train["rules"]["embed"] == ["data"]
+    int8 = by["shard_train_int8"][0]
+    assert int8["layers"] == 8 and int8["max_loss_rel_diff"] <= 1e-3
+    assert int8["max_err_abs_diff"] <= int8["err_atol"] == 1e-6
     assert by["shard_phase"][0]["failures"] == []
+
+
+def test_chip_smoke_shard_phase_fails_on_a_per_layer_scale(shard_phase,
+                                                          monkeypatch):
+    """int8 under the mesh with one scale a layer, not one a reference
+    leaf, must fail the phase's err check."""
+    from repro_torch.training import compression as comp
+    whole = comp.quantize_layers
+
+    def per_layer(grads, errs):
+        outs = [whole([g], [e]) for g, e in zip(grads, errs)]
+        return [o[0][0] for o in outs], [o[1][0] for o in outs]
+
+    monkeypatch.setattr(comp, "quantize_layers", per_layer)
+    with pytest.raises(AssertionError, match="shard: .*err buffers"):
+        shard_phase()
 
 
 def test_chip_smoke_shard_phase_fails_on_a_wrong_pin(shard_phase,
