@@ -20,14 +20,23 @@ Phases, each printing one JSON line; any failure exits non-zero:
               groups, dtypes, causal flags and ragged lengths (flash: query
               lengths around the 128-row tile and causal offsets; decode:
               cache lengths at the split-KV boundaries +- 1), and the bf16
-              flash wrapper refusing a misaligned stride; the SSD scan
+              flash wrapper refusing a misaligned stride; a context-parallel
+              rank's query rows at their offset (ops.flash_attention's
+              q_offset) against those rows of the whole attention; the
+              partial decode kernel (decode_attention_partial) on each
+              shard of a raggedly cut cache, its o and log-sum-exp against
+              the plain share's (lse within LSE_TOL), the shares merged on
+              the card against the whole-cache kernel, an empty shard
+              launching nothing; the SSD scan
               against its dual form, its sequential recurrence and that
               recurrence in float64 over head dims, state dims, ragged
               lengths, batches, with and without an initial state, both
               ranges of A (around -1; -1 to -16 as the models set it), and
               split in two with the state carried; then at the serving
               shapes of qwen2-7b, zamba2-7b, mamba2-130m, gemma-2b and
-              granite-3-2b (and qwen2-7b-int8's MLP up-projection at
+              granite-3-2b (qwen2-7b's cache also cut into 4 shards of 256
+              positions for the partial kernel, each shard timed; and
+              qwen2-7b-int8's MLP up-projection at
               prefill and decode, on each layout of w_q) the kernel, plain
               and library times (CUDA events, L2 flushed before each
               launch; the int8 GEMM also after a flush that only reads)
@@ -69,6 +78,15 @@ Phases, each printing one JSON line; any failure exits non-zero:
               within 10 % of the error uniform int8 rounding predicts, and
               (all but the MLP down-projection, whose SwiGLU input is
               heavy-tailed) within 0.02 of the dense fp32 product.
+7b. seqpar -- the sequence-parallel attention on the same qwen2-7b: a
+              prefill (8 x 512) and 16 teacher-forced decode steps with the
+              sequence cut into 4 shards as 4 ranks cut it (each shard's
+              query rows through flash at their offset; each non-empty
+              cache shard's share through the partial kernel, the shares
+              merged by ref.merge_partials where the ranks all-reduce),
+              logits within LOGITS_TOL of the whole-sequence run, launches
+              counted from 0: flash 4 a layer, partial 3 a layer and step
+              (cache_len 513..528: shard 3 empty), whole-cache decode 0.
 8. moe      -- the MoE family at full width, its depth cut to fit the
               card: llama4-scout at 8 of its 48 layers and llama4-maverick
               at one group (a dense layer, then an MoE layer over 128
@@ -204,7 +222,10 @@ Phases, each printing one JSON line; any failure exits non-zero:
               plain path's bounds beside them, and the roofline fraction
               (2ND, 6ND for training, over wall x 989e12).  Then the
               production cells on the 256-rank pod mesh (DRYRUN_PRODUCTION:
-              qwen2-7b x decode_32k, llama4-scout x train_4k, and the
+              qwen2-7b x decode_32k and gemma-2b x prefill_32k (the
+              sequence-parallel attention; each printed beside the same
+              cell's count on the parent tree, DRYRUN_BEFORE),
+              llama4-scout x train_4k, and the
               cells the card's torch once refused: mamba2-130m x
               prefill_32k (the causal conv's halo on sequence shards),
               x train_4k (the halo's backward), x decode_32k (the SSD
@@ -266,6 +287,10 @@ SSD_F64_TOL = 2e-6
 LOGITS_TOL = 2e-2            # full-model prefill logits, kernel vs plain
 FP32_LOGITS_TOL = 1e-3       # fp32 at a few layers, kernel vs float64
 KERNELS = ("flash_attention", "decode_attention", "ssd_scan", "quant_matmul")
+# decode's share of one cache shard (decode_attention.cu's second launcher)
+PARTIAL = "decode_attention_partial"
+LSE_TOL = 1e-3            # a share's log-sum-exp against the plain share's
+SEQ_SHARDS = 4            # the sequence shards of the seqpar phase
 QMM_TOL = 1e-6            # int8 product: exact (tests/test_kernels.py:112)
 # qwen2-7b-int8's MLP up-projection: K 3584 -> N 18944, at the serve
 # batch's prefill (8 x 474 rows) and at one decode step (8 rows)
@@ -352,6 +377,17 @@ def _max_err(torch, out, want, tol: float):
     return float(err.max()), ok
 
 
+def _lse_err(torch, lse, want) -> float:
+    """Max |lse - want| over the finite entries; infinite where the two
+    disagree on which entries are -inf (an empty shard's)."""
+    if not torch.equal(torch.isneginf(lse), torch.isneginf(want)):
+        return math.inf
+    fin = torch.isfinite(want)
+    if not bool(fin.any()):
+        return 0.0
+    return float((lse[fin] - want[fin]).abs().max())
+
+
 def _rel_errs(got, exact) -> list:
     """Per tensor, max |got - exact| over max |exact| (exact in float64)."""
     return [float((g.double() - e).abs().max() / e.abs().max())
@@ -433,9 +469,11 @@ def _ssd_flop_bytes(B, S, nh, hd, ds, with_init: bool):
 def phase_kernels(torch, card) -> list:
     import torch.nn.functional as F
     from repro_torch.kernels import ref
+    from repro_torch.kernels import decode_attention as dmod
     from repro_torch.kernels import flash_attention as fmod
-    from repro_torch.kernels.decode_attention import (decode_attention,
-                                                      split_plan)
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.decode_attention import (
+        decode_attention, decode_attention_partial, split_plan)
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.quant_matmul import K_MAX as QMM_K_MAX
     from repro_torch.kernels.quant_matmul import plan as qmm_plan
@@ -471,7 +509,7 @@ def phase_kernels(torch, card) -> list:
 
     dtypes = {"float32": torch.float32, "bfloat16": torch.bfloat16}
     failures, n_cases, worst_f64 = [], 0, 0.0
-    worst = dict.fromkeys(KERNELS, 0.0)
+    worst = dict.fromkeys(KERNELS + (PARTIAL,), 0.0)
 
     def check(kernel, out, want, tol, **case):
         nonlocal n_cases
@@ -517,6 +555,25 @@ def phase_kernels(torch, card) -> list:
         failures.append(dict(kernel="flash_attention", case="misaligned "
                              "stride counted a launch"))
     n_cases += 1
+    # flash on one rank's query rows of a context-parallel prefill: the
+    # rows [lo, hi) at their global offset, K/V cut to [0, hi) by the
+    # wrapper (views: bases and strides stay), against those rows of the
+    # whole causal attention
+    for (B, S, H, KV, hd), dname in itertools.product(
+            ((2, 512, 28, 4, 128), (2, 384, 8, 1, 256), (1, 300, 32, 8, 64)),
+            dtypes):
+        dt = dtypes[dname]
+        q = randn(B, S, H, hd, dtype=dt)
+        k = randn(B, S, KV, hd, dtype=dt)
+        v = randn(B, S, KV, hd, dtype=dt)
+        whole = ref.flash_attention_ref(q, k, v)
+        rows = S // 4
+        for lo in range(0, S, rows):
+            hi = min(lo + rows, S)
+            check("flash_attention",
+                  ops.flash_attention(q[:, lo:hi], k, v, q_offset=lo),
+                  whole[:, lo:hi], TOLS[dname], H=H, KV=KV, hd=hd,
+                  dtype=dname, S=S, rows=(lo, hi))
     # decode: cache lengths at the split-KV boundaries +- 1 of each plan
     # (zamba2's, qwen2's and gemma-2b's groups on a 1024-position cache)
     for (B, KV, G, hd), dname in itertools.product(
@@ -548,6 +605,49 @@ def phase_kernels(torch, card) -> list:
                           ref.decode_attention_ref(q, kc, vc, cl),
                           TOLS[dname], hd=hd, G=G, fill=fill, dtype=dname,
                           cache_len=cl)
+    # decode's shares of a sequence-sharded cache: a 1000-position cache
+    # cut into ragged shards (only the first a whole number of 64-position
+    # tiles), each shard's share through the partial kernel, each share's
+    # o and lse against the plain share's, the shares merged on the card
+    # against the whole-cache kernel and the plain version; a shard past
+    # cache_len launches nothing
+    bounds = (0, 256, 600, 777, 1000)
+    for (B, KV, G, hd), dname in itertools.product(
+            ((8, 4, 7, 128), (8, 1, 8, 256), (2, 1, 8, 64), (8, 32, 1, 112)),
+            dtypes):
+        dt = dtypes[dname]
+        q = randn(B, 1, KV * G, hd, dtype=dt)
+        kc = randn(B, bounds[-1], KV, hd, dtype=dt)
+        vc = randn(B, bounds[-1], KV, hd, dtype=dt)
+        for cl in (1, 255, 256, 257, 600, 700, 1000):
+            cs = dict(hd=hd, G=G, KV=KV, dtype=dname, cache_len=cl)
+            shares = []
+            for lo, hi in zip(bounds, bounds[1:]):
+                valid = min(max(cl - lo, 0), hi - lo)
+                n0 = dmod.partial_launches
+                o, lse = decode_attention_partial(q, kc[:, lo:hi],
+                                                  vc[:, lo:hi], valid)
+                if dmod.partial_launches != n0 + (valid > 0):
+                    failures.append(dict(kernel=PARTIAL, case="launch not "
+                                         "counted once", shard=(lo, hi),
+                                         **cs))
+                po, plse = ref.decode_attention_partial_ref(
+                    q, kc[:, lo:hi], vc[:, lo:hi], valid)
+                check(PARTIAL, o, po, TOLS[dname], part="o", shard=(lo, hi),
+                      **cs)
+                lse_err = _lse_err(torch, lse, plse)
+                worst[PARTIAL] = max(worst[PARTIAL], lse_err)
+                if not lse_err <= LSE_TOL:
+                    failures.append(dict(kernel=PARTIAL, part="lse",
+                                         err=lse_err, shard=(lo, hi), **cs))
+                shares.append((o, lse))
+            merged = ref.merge_partials(
+                torch.stack([o for o, _ in shares]),
+                torch.stack([lse for _, lse in shares])).to(dt)
+            check(PARTIAL, merged, decode_attention(q, kc, vc, cl),
+                  TOLS[dname], part="merged vs kernel", **cs)
+            check(PARTIAL, merged, ref.decode_attention_ref(q, kc, vc, cl),
+                  TOLS[dname], part="merged vs plain", **cs)
     # ssd: hd x ds x S (ragged and prime included) x B x init state x the
     # range of A, each against the dual form and the exact recurrence, and
     # against the recurrence in float64 (SSD_F64_TOL, relative to the
@@ -715,6 +815,73 @@ def phase_kernels(torch, card) -> list:
             lambda: F.scaled_dot_product_attention(q1t, kct, vct,
                                                    enable_gqa=True))
 
+    def partial_at(tag, B, H, KV, hd, cl, shards):
+        """The partial kernel on each of ``shards`` equal sequence shards
+        of a serving cache, as that many ranks run it: the shares against
+        the plain shares, and merged on the card against the whole-cache
+        kernel and the plain version.  The row's time and bound are those
+        of the first shard (all positions valid: the busiest rank, whose
+        share the step waits for); ``per_shard`` holds every shard's."""
+        q1 = randn(B, 1, H, hd, dtype=bf)
+        kc = randn(B, SERVE_MAX_SEQ, KV, hd, dtype=bf)
+        vc = randn(B, SERVE_MAX_SEQ, KV, hd, dtype=bf)
+        S_l = SERVE_MAX_SEQ // shards
+        shares, per_shard = [], []
+        err = lse_err = 0.0
+        for r in range(shards):
+            ks, vs = kc[:, r * S_l:(r + 1) * S_l], vc[:, r * S_l:(r + 1) * S_l]
+            valid = min(max(cl - r * S_l, 0), S_l)
+            o, lse = decode_attention_partial(q1, ks, vs, valid)
+            po, plse = ref.decode_attention_partial_ref(q1, ks, vs, valid)
+            e, ok = _max_err(torch, o, po, TOLS["bfloat16"])
+            le = _lse_err(torch, lse, plse)
+            oks[f"partial {tag} shard {r} o"] = ok
+            oks[f"partial {tag} shard {r} lse"] = le <= LSE_TOL
+            err, lse_err = max(err, e), max(lse_err, le)
+            shares.append((o, lse))
+            bound, by = _bound(4.0 * B * H * hd * valid,
+                               2.0 * (2 * B * valid * KV * hd + q1.numel())
+                               + 4.0 * (o.numel() + lse.numel()), "bfloat16")
+            per_shard.append(dict(
+                shard=r, positions=[r * S_l, (r + 1) * S_l], valid=valid,
+                launches_a_call=int(valid > 0),
+                split=(split_plan(B, KV, valid, sm_count) if valid else None),
+                ms=_time_ms(torch, lambda a=(ks, vs, valid):
+                            decode_attention_partial(q1, *a), flush),
+                plain_ms=_time_ms(torch, lambda a=(ks, vs, valid):
+                                  ref.decode_attention_partial_ref(q1, *a),
+                                  flush),
+                bound_ms=bound, bound_by=by, max_abs_err=e, lse_err=le))
+        merged = ref.merge_partials(torch.stack([o for o, _ in shares]),
+                                    torch.stack([x for _, x in shares]))
+        merged = merged.to(bf)
+        e_kernel, oks[f"partial {tag} merged vs kernel"] = _max_err(
+            torch, merged, decode_attention(q1, kc, vc, cl), TOLS["bfloat16"])
+        e_plain, oks[f"partial {tag} merged vs plain"] = _max_err(
+            torch, merged, ref.decode_attention_ref(q1, kc, vc, cl),
+            TOLS["bfloat16"])
+        first = per_shard[0]
+        ks, vs = kc[:, :S_l], vc[:, :S_l]
+        q1t = q1.transpose(1, 2)
+        kst, vst = ks.transpose(1, 2), vs.transpose(1, 2)
+        return dict(
+            name=PARTIAL, route="cuda", model=tag,
+            source="src/repro_torch/kernels/csrc/decode_attention.cu",
+            replaces="src/repro/kernels/decode_attention.py:65",
+            shape=f"{tag}: q [{B},1,{H},{hd}] caches [{B},{SERVE_MAX_SEQ},"
+                  f"{KV},{hd}] bf16 cache_len {cl}, {shards} shards of "
+                  f"{S_l}; the row: shard 0",
+            max_abs_err=max(err, e_kernel, e_plain, worst[PARTIAL]),
+            lse_max_abs_err=lse_err, merged_vs_kernel_err=e_kernel,
+            merged_vs_plain_err=e_plain,
+            ms=first["ms"], plain_ms=first["plain_ms"],
+            bound_ms=first["bound_ms"], bound_by=first["bound_by"],
+            library_ms=_time_ms(torch, lambda: F.scaled_dot_product_attention(
+                q1t, kst, vst, enable_gqa=True), flush),
+            library="F.scaled_dot_product_attention on shard 0 (its output; "
+                    "no log-sum-exp)",
+            per_shard=per_shard)
+
     def ssd_at(tag, B, S, nh, hd, ds, chunk):
         x, dt, A, Bm, Cm = ssd_inputs(B, S, nh, hd, ds)
         y, fin = ssd_scan(x, dt, A, Bm, Cm)
@@ -817,6 +984,9 @@ def phase_kernels(torch, card) -> list:
     B = SERVE_BATCH
     rows.append(flash_at(QWEN, B, 512, 28, 4, 128))
     rows.append(decode_at(QWEN, B, 28, 4, 128, 528))
+    # the same cache cut into 4 shards of 256 positions: shard 2 ends
+    # mid-tile at 528, shard 3 is empty
+    rows.append(partial_at(QWEN, B, 28, 4, 128, 528, SEQ_SHARDS))
     rows.append(ssd_at(ZAMBA, B, 474, 112, 64, 64, 128))
     rows.extend(qmm_at(QMM_PREFILL, B * 474, QMM_K, QMM_N))
     rows.extend(qmm_at(QMM_DECODE, B, QMM_K, QMM_N))
@@ -1007,6 +1177,96 @@ def _forced_logits(torch, model, prompts, forced):
     return torch.stack(out, 1)
 
 
+@contextlib.contextmanager
+def _sequence_shards(torch, n: int):
+    """While it lasts, ``ops.flash_attention`` and ``ops.decode_attention``
+    compute on one card what ``n`` ranks of a mesh whose model axis shards
+    the sequence compute (``ops.on_shards``): a prefill's query rows in
+    ``n`` blocks, each at its global offset against the whole K/V; a
+    decode step's cache in ``n`` shards, each shard's share through the
+    partial kernel (an empty one launches nothing), the shares merged by
+    ``ref.merge_partials``, the arithmetic of the ranks' all-reduces."""
+    from repro_torch.kernels import ops, ref
+    flash, decode = ops.flash_attention, ops.decode_attention
+
+    def rows(q, k, v, *, causal=True, scale=None):
+        S_l = q.shape[1] // n
+        if S_l * n != q.shape[1]:
+            raise ValueError(f"{q.shape[1]} rows do not split {n} ways")
+        return torch.cat([flash(q[:, r * S_l:(r + 1) * S_l], k, v,
+                                causal=causal, scale=scale, q_offset=r * S_l)
+                          for r in range(n)], dim=1)
+
+    def shards(q, k_cache, v_cache, cache_len, *, scale=None):
+        S_l = k_cache.shape[1] // n
+        shares = [ops.decode_attention_partial(
+            q, k_cache[:, r * S_l:(r + 1) * S_l],
+            v_cache[:, r * S_l:(r + 1) * S_l],
+            min(max(cache_len - r * S_l, 0), S_l), scale=scale)
+            for r in range(n)]
+        return ref.merge_partials(torch.stack([o for o, _ in shares]),
+                                  torch.stack([x for _, x in shares])
+                                  ).to(q.dtype)
+
+    ops.flash_attention, ops.decode_attention = rows, shards
+    try:
+        yield
+    finally:
+        ops.flash_attention, ops.decode_attention = flash, decode
+
+
+def phase_seqpar(torch, card, model) -> dict:
+    """The sequence-parallel attention at full width on the card: the
+    model's prefill of 8 x 512 tokens and 16 teacher-forced decode steps
+    (cache_len 513 to 528 of 1024) with the sequence cut into SEQ_SHARDS
+    shards as that many ranks cut it (:func:`_sequence_shards`: every
+    shard's rows through the flash kernel, every non-empty cache shard's
+    share through the partial kernel; shard 3 stays empty, shard 2 ends
+    mid-tile), against the same steps on the whole sequence.  The launch
+    counts are set to 0 just before the sharded run and read just after:
+    one flash launch a shard and attention layer, one partial launch a
+    non-empty shard, layer and step, no whole-cache decode."""
+    import numpy as np
+    from repro_torch.kernels import decode_attention as dmod
+    from repro_torch.kernels import flash_attention as fmod
+    from repro_torch.models.kvcache import num_attn_applications
+
+    t0 = time.monotonic()
+    arch = model.arch
+    P = 512
+    tokens = torch.as_tensor(np.random.default_rng(2).integers(
+        0, arch.vocab_size, size=(SERVE_BATCH, P + SERVE_NEW + 1)),
+        device=model.device)
+    prompts, forced = tokens[:, :P], tokens[:, P:]
+    whole = _forced_logits(torch, model, prompts, forced)
+    torch.cuda.synchronize()
+    fmod.launches = dmod.launches = dmod.partial_launches = 0
+    with _sequence_shards(torch, SEQ_SHARDS):
+        sharded = _forced_logits(torch, model, prompts, forced)
+    torch.cuda.synchronize()
+    counts = {"flash_attention": fmod.launches,
+              "decode_attention": dmod.launches,
+              PARTIAL: dmod.partial_launches}
+    n_attn = num_attn_applications(arch)
+    S_l = SERVE_MAX_SEQ // SEQ_SHARDS
+    expect = {"flash_attention": n_attn * SEQ_SHARDS, "decode_attention": 0,
+              PARTIAL: n_attn * sum(
+                  sum(P + i + 1 > r * S_l for r in range(SEQ_SHARDS))
+                  for i in range(SERVE_NEW))}
+    rel = float((sharded - whole).abs().max() / whole.abs().max())
+    top1 = float((sharded.argmax(-1) == whole.argmax(-1)).float().mean())
+    finite = bool(torch.isfinite(sharded).all())
+    emit("seqpar", card=card["nvidia_smi"], arch=arch.name,
+         shards=SEQ_SHARDS, prompt=P, steps=SERVE_NEW,
+         cache_lens=[P + 1, P + SERVE_NEW], logits_rel_err=rel,
+         top1_agreement=top1, finite=finite, launches=counts,
+         expected_launches=expect, phase_host_wall_s=time.monotonic() - t0)
+    if counts != expect or not finite or rel >= LOGITS_TOL:
+        raise AssertionError(f"seqpar: launches {counts} (want {expect}), "
+                             f"rel err {rel}, finite {finite}")
+    return counts
+
+
 def phase_model(torch, card, name: str, small_layers: int):
     """A full-width bf16 prefill, then a fp32 generation at a few layers,
     each through the kernels and through the plain versions.  Every kernel
@@ -1192,6 +1452,7 @@ def phase_serve(torch, card, model, seed: int) -> dict:
             "ssd_scan": smod, "quant_matmul": qmod}
     for mod in mods.values():
         mod.launches = 0
+    dmod.partial_launches = 0
     done, walls = [], []
     while batcher.queue:
         t0 = time.monotonic()
@@ -1218,13 +1479,14 @@ def phase_serve(torch, card, model, seed: int) -> dict:
          wall_s_per_batch=walls,
          tokens_per_s=len(done) * SERVE_NEW / sum(walls),
          max_memory_allocated_bytes=torch.cuda.max_memory_allocated(),
-         launches=counts, expected_launches=expect)
+         launches=counts, expected_launches=expect,
+         partial_launches=dmod.partial_launches)
     if len(done) != SERVE_BATCH or not results_ok:
         raise AssertionError(f"{arch.name}: served {len(done)} of "
                              f"{SERVE_BATCH} (results ok: {results_ok})")
-    if counts != expect:
+    if counts != expect or dmod.partial_launches:   # one card: no shards
         raise AssertionError(f"{arch.name}: launch counts {counts} != "
-                             f"{expect}")
+                             f"{expect}, {dmod.partial_launches} partial")
     return counts, eng, int(lens.max())
 
 
@@ -3628,11 +3890,26 @@ def phase_shard(torch, card, seed: int, device: str = "cuda",
 # ---------------------------------------------------------------------------
 DRYRUN_ARGS_RTOL = 0.01    # dry-run argument bytes against the card's
 DRYRUN_PRODUCTION = (("qwen2-7b", "decode_32k", "pod"),
+                     ("gemma-2b", "prefill_32k", "pod"),
                      ("llama4-scout-17b-a16e", "train_4k", "pod"),
                      ("mamba2-130m", "prefill_32k", "pod"),
                      ("mamba2-130m", "train_4k", "pod"),
                      ("mamba2-130m", "decode_32k", "pod"),
                      ("granite-3-2b", "train_4k", "pod"))
+# the cells the sequence-parallel attention moved, as the parent tree (the
+# port before it) counts them on the card host's torch 2.11 (the records
+# of python -m repro_torch.launch.dryrun there)
+DRYRUN_BEFORE = {
+    ("qwen2-7b", "decode_32k", "pod"): {
+        "collectives": {"all-reduce": 5046272.0,
+                        "all-gather": 16676810752.0},
+        "flops": 124628238336.0, "peak_memory_in_bytes": 3561570560},
+    ("gemma-2b", "prefill_32k", "pod"): {
+        "collectives": {"all-reduce": 163208757248.0,
+                        "all-gather": 7855931392.0,
+                        "all-to-all": 754974720.0},
+        "flops": 332894456250368.0, "peak_memory_in_bytes": 210238722048},
+}
 DRYRUN_WAIT_S = 600.0      # the production cells' subprocesses
 DRYRUN_REPS = 3            # timed steps of each card cell
 
@@ -3687,6 +3964,7 @@ def _dryrun_finish(card, procs, deadline: float) -> list:
              policy_notes=rec.get("policy_notes"), cost=rec.get("cost"),
              memory=rec.get("memory"), collectives=rec.get("collectives"),
              collective_counts=rec.get("collective_counts"),
+             before_sequence_parallel=DRYRUN_BEFORE.get(tuple(cell)),
              roofline_preset=PRESET,
              roofline={k: row.get(k) for k in (
                  "compute_s", "memory_s", "collective_s", "dominant",
@@ -3925,6 +4203,7 @@ def main(argv=None) -> int:
         phase_profile(torch, card, eng, S)
         if name == QWEN:
             int8_launches = phase_int8(torch, card, model, args.seed)
+            seqpar_launches = phase_seqpar(torch, card, model)
         del model, eng
         torch.cuda.empty_cache()
     launches.update(phase_moe(torch, card, args.seed))
@@ -3938,6 +4217,10 @@ def main(argv=None) -> int:
     phase_shard(torch, card, args.seed)
     phase_dryrun(torch, card, args.seed)
     for row in rows:
+        if row["name"] == PARTIAL:      # one card serves no shards
+            row["launches"] = seqpar_launches[PARTIAL]
+            row["launches_from"] = "seqpar phase"
+            continue
         if row["name"] == "quant_matmul":   # no serve run calls it
             row["launches"] = int8_launches[row["model"]][row["layout"]]
             row["launches_from"] = "int8 phase"

@@ -26,19 +26,22 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _ptr, _int, _i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-# argtypes of each library's launcher, in the order of its C signature
+# argtypes of each library's launchers, in the order of their C signatures
 _SIGNATURES = {
-    "flash_attention": ("flash_attention_launch",
+    "flash_attention": {"flash_attention_launch":
                         [_ptr] * 4 + [_int] * 6 + [_i64] * 12
-                        + [ctypes.c_float, _int, _int, _ptr]),
-    "decode_attention": ("decode_attention_launch",
+                        + [ctypes.c_float, _int, _int, _ptr]},
+    "decode_attention": {"decode_attention_launch":
                          [_ptr] * 5 + [_int] * 6 + [_i64] * 10
-                         + [ctypes.c_float, _int, _ptr]),
-    "ssd_scan": ("ssd_scan_launch",
-                 [_ptr] * 9 + [_int] * 6 + [_i64] * 12 + [_ptr]),
-    "quant_matmul": ("quant_matmul_launch",
+                         + [ctypes.c_float, _int, _ptr],
+                         "decode_attention_partial_launch":
+                         [_ptr] * 6 + [_int] * 6 + [_i64] * 10
+                         + [ctypes.c_float, _int, _ptr]},
+    "ssd_scan": {"ssd_scan_launch":
+                 [_ptr] * 9 + [_int] * 6 + [_i64] * 12 + [_ptr]},
+    "quant_matmul": {"quant_matmul_launch":
                      [_ptr] * 6 + [_int] * 3 + [_i64] * 3 + [_int] * 3
-                     + [_ptr]),
+                     + [_ptr]},
 }
 
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -101,10 +104,10 @@ def library(name: str) -> ctypes.CDLL:
         if lib is None:
             build_all([name])
             lib = ctypes.CDLL(str(library_path(name)))
-            fn_name, argtypes = _SIGNATURES[name]
-            fn = getattr(lib, fn_name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
+            for fn_name, argtypes in _SIGNATURES[name].items():
+                fn = getattr(lib, fn_name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
             err = getattr(lib, f"{name}_error_string")
             err.argtypes = [ctypes.c_int]
             err.restype = ctypes.c_char_p

@@ -26,6 +26,11 @@
 //   kernel, grid (G, KV, B), rescales the partials by e^(m_i - m) and
 //   writes acc / max(l, 1e-30).  With one split the split kernel writes o
 //   itself.
+// * A shard's share (decode_attention_partial_launch): a rank of a mesh
+//   whose cache is sequence-sharded runs the same two kernels on its
+//   shard, always through the merge, which then leaves o in fp32 and also
+//   writes the log-sum-exp m + log(l) of each (batch, query head); the
+//   ranks merge their shares (o, lse) with all-reduces.
 // * Bytes in flight.  K and V stream through two shared-memory stages of
 //   64 rows (32 for fp32 at hd 256, whose 64-row tiles do not fit twice)
 //   with 16-byte cp.async copies, the next tile loading while the current
@@ -307,24 +312,24 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ kc, const T* 
     float a = 0.f;
 #pragma unroll
     for (int i = 0; i < C::CG; ++i) a += red[(i * MAXG + g) * HD + d];
-    if (n_splits == 1)
+    if (part == nullptr)
       o[b * os.b + ((int64_t)kvh * G + g) * os.h + d] = from_float<T>(a / fmaxf(sl[g], 1e-30f));
     else
       part[(first + g) * HD + d] = a;
   }
-  if (n_splits > 1 && tid < G) {
+  if (part != nullptr && tid < G) {
     part[total * HD + first + tid] = sm[tid];
     part[total * HD + total + first + tid] = sl[tid];
   }
 }
 
 // acc = sum_i e^(m_i - m) acc_i, l = sum_i e^(m_i - m) l_i with m the
-// largest m_i; out = acc / max(l, 1e-30).  Grid (G, KV, B), one thread per
-// column of hd: many small blocks, so that the partials' reads spread over
-// the SMs.
+// largest m_i; out = acc / max(l, 1e-30), and with `lse` also m + log(l)
+// at [B][H].  Grid (G, KV, B), one thread per column of hd: many small
+// blocks, so that the partials' reads spread over the SMs.
 template <typename T>
 __global__ void decode_merge_kernel(const float* __restrict__ part, T* __restrict__ o,
-                                    int n_splits, Strides os) {
+                                    float* __restrict__ lse, int n_splits, Strides os) {
   const int g = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z, d = threadIdx.x;
   const int G = gridDim.x, HD = blockDim.x;
   const int64_t total = (int64_t)gridDim.z * gridDim.y * n_splits * G;
@@ -344,6 +349,7 @@ __global__ void decode_merge_kernel(const float* __restrict__ part, T* __restric
     a = fmaf(w, part[idx * HD + d], a);
   }
   o[b * os.b + ((int64_t)kvh * G + g) * os.h + d] = from_float<T>(a / fmaxf(l, 1e-30f));
+  if (lse != nullptr && d == 0) lse[((int64_t)b * gridDim.y + kvh) * G + g] = m + logf(l);
 }
 
 // The dynamic shared-memory opt-in is a property of a kernel on a device:
@@ -361,10 +367,13 @@ cudaError_t opt_in_smem(Kern kern, size_t smem, std::atomic<uint64_t>& done) {
   return e;
 }
 
+// With `lse` the merge always runs and writes o as fp32 (a shard's share);
+// without it o is T, written by the split kernel alone when there is one
+// split.
 template <typename T, int HD>
-cudaError_t launch(const void* q, const void* kc, const void* vc, void* o, float* part, int B,
-                   int KV, int G, int cache_len, int split_len, Strides qs, Strides ks,
-                   Strides vs, Strides os, float scale, cudaStream_t stream) {
+cudaError_t launch(const void* q, const void* kc, const void* vc, void* o, float* part,
+                   float* lse, int B, int KV, int G, int cache_len, int split_len, Strides qs,
+                   Strides ks, Strides vs, Strides os, float scale, cudaStream_t stream) {
   using C = Cfg<T, HD>;
   auto kern = decode_split_kernel<T, HD>;
   static std::atomic<uint64_t> smem_set{0};
@@ -372,34 +381,40 @@ cudaError_t launch(const void* q, const void* kc, const void* vc, void* o, float
   if (e != cudaSuccess) return e;
   const int n_splits = (cache_len + split_len - 1) / split_len;
   const int stages = min(STAGES, (split_len + C::TR - 1) / C::TR);
+  const bool merged = lse != nullptr || n_splits > 1;
   kern<<<dim3(n_splits, KV, B), THREADS, C::smem(stages), stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(kc), static_cast<const T*>(vc),
-      static_cast<T*>(o), part, cache_len, split_len, stages, G, qs, ks, vs, os, scale);
+      static_cast<T*>(o), merged ? part : nullptr, cache_len, split_len, stages, G, qs, ks, vs,
+      os, scale);
   e = cudaGetLastError();
-  if (e != cudaSuccess || n_splits == 1) return e;
-  decode_merge_kernel<T><<<dim3(G, KV, B), HD, 0, stream>>>(part, static_cast<T*>(o), n_splits,
-                                                            os);
+  if (e != cudaSuccess || !merged) return e;
+  if (lse != nullptr)
+    decode_merge_kernel<float><<<dim3(G, KV, B), HD, 0, stream>>>(
+        part, static_cast<float*>(o), lse, n_splits, os);
+  else
+    decode_merge_kernel<T><<<dim3(G, KV, B), HD, 0, stream>>>(part, static_cast<T*>(o), nullptr,
+                                                              n_splits, os);
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t launch_hd(int hd, const void* q, const void* kc, const void* vc, void* o,
-                      float* part, int B, int KV, int G, int cache_len, int split_len,
-                      Strides qs, Strides ks, Strides vs, Strides os, float scale,
+                      float* part, float* lse, int B, int KV, int G, int cache_len,
+                      int split_len, Strides qs, Strides ks, Strides vs, Strides os, float scale,
                       cudaStream_t stream) {
   switch (hd) {
     case 64:
-      return launch<T, 64>(q, kc, vc, o, part, B, KV, G, cache_len, split_len, qs, ks, vs, os,
-                           scale, stream);
+      return launch<T, 64>(q, kc, vc, o, part, lse, B, KV, G, cache_len, split_len, qs,
+                           ks, vs, os, scale, stream);
     case 112:
-      return launch<T, 112>(q, kc, vc, o, part, B, KV, G, cache_len, split_len, qs, ks, vs, os,
-                            scale, stream);
+      return launch<T, 112>(q, kc, vc, o, part, lse, B, KV, G, cache_len, split_len, qs,
+                            ks, vs, os, scale, stream);
     case 128:
-      return launch<T, 128>(q, kc, vc, o, part, B, KV, G, cache_len, split_len, qs, ks, vs, os,
-                            scale, stream);
+      return launch<T, 128>(q, kc, vc, o, part, lse, B, KV, G, cache_len, split_len, qs,
+                            ks, vs, os, scale, stream);
     case 256:
-      return launch<T, 256>(q, kc, vc, o, part, B, KV, G, cache_len, split_len, qs, ks, vs, os,
-                            scale, stream);
+      return launch<T, 256>(q, kc, vc, o, part, lse, B, KV, G, cache_len, split_len, qs,
+                            ks, vs, os, scale, stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -429,11 +444,41 @@ extern "C" int decode_attention_launch(
   float* pf = static_cast<float*>(part);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return launch_hd<float>(hd, q, kc, vc, o, pf, B, KV, G, cache_len, split_len, qs, ks, vs, os,
-                            scale, st);
+    return launch_hd<float>(hd, q, kc, vc, o, pf, nullptr, B, KV, G, cache_len, split_len, qs, ks,
+                            vs, os, scale, st);
   if (dtype == 1)
-    return launch_hd<__nv_bfloat16>(hd, q, kc, vc, o, pf, B, KV, G, cache_len, split_len, qs, ks,
-                                    vs, os, scale, st);
+    return launch_hd<__nv_bfloat16>(hd, q, kc, vc, o, pf, nullptr, B, KV, G, cache_len, split_len,
+                                    qs, ks, vs, os, scale, st);
+  return cudaErrorInvalidValue;
+}
+
+// One cache shard's share of a decode step: as decode_attention_launch
+// over the shard's first valid_len positions (1..S_local; an empty shard
+// is decided on the host and launches nothing), but the merge always runs:
+// o [B,1,H,hd] is fp32 (strides in elements), normalised over the shard,
+// and lse [B,H] (contiguous, fp32) gets m + log(l) per (batch, query
+// head).  `part` is fp32 scratch of B*KV*splits*G*(hd+2) values, needed
+// with one split too.
+extern "C" int decode_attention_partial_launch(
+    const void* q, const void* kc, const void* vc, void* o, void* lse, void* part, int B, int H,
+    int KV, int hd, int valid_len, int split_len, int64_t q_sb, int64_t q_sh, int64_t k_sb,
+    int64_t k_ss, int64_t k_sh, int64_t v_sb, int64_t v_ss, int64_t v_sh, int64_t o_sb,
+    int64_t o_sh, float scale, int dtype, void* stream) {
+  if (KV <= 0 || H % KV != 0 || H / KV > MAXG || valid_len <= 0 || split_len <= 0 ||
+      split_len % 64 != 0 || part == nullptr || lse == nullptr || o == nullptr)
+    return cudaErrorInvalidValue;
+  const Strides qs{q_sb, 0, q_sh}, ks{k_sb, k_ss, k_sh}, vs{v_sb, v_ss, v_sh},
+      os{o_sb, 0, o_sh};
+  const int G = H / KV;
+  float* pf = static_cast<float*>(part);
+  float* lf = static_cast<float*>(lse);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return launch_hd<float>(hd, q, kc, vc, o, pf, lf, B, KV, G, valid_len, split_len, qs, ks, vs,
+                            os, scale, st);
+  if (dtype == 1)
+    return launch_hd<__nv_bfloat16>(hd, q, kc, vc, o, pf, lf, B, KV, G, valid_len, split_len, qs,
+                                    ks, vs, os, scale, st);
   return cudaErrorInvalidValue;
 }
 

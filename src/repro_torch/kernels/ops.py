@@ -13,9 +13,21 @@ through :func:`on_shards`: each wrapper takes its inputs to placements on
 which its work is local (batch and query/KV heads for the attention
 kernels; batch, SSM heads and head-dim rows for the SSD; rows or columns
 for the int8 GEMM), redistributing explicitly where a sharding cannot be
-taken locally (a sharded sequence, a sequence-sharded cache: an
-all-gather), and calls the kernel, or its plain version on the CPU, on
+taken locally, and calls the kernel, or its plain version on the CPU, on
 each rank's local shards.  The extension itself never sees a DTensor.
+
+The attention follows the JAX package's sequence parallelism, as its GSPMD
+lowering divides the work, and gathers neither the cache nor the queries:
+
+* decode over a cache sharded on its sequence: on each mesh dim that
+  shards the cache's positions, every rank computes its shard's share (the
+  output over its valid positions and their log-sum-exp,
+  :func:`decode_attention_partial`) and the ranks merge the shares with
+  all-reduces (the max of the log-sum-exps, then the sums of the weights
+  and of the weighted outputs): the flash-decode pattern;
+* prefill with the queries sharded on their sequence (context mode): every
+  rank computes its own query rows at their global positions against the
+  whole K/V, which are gathered where they are not whole already.
 """
 from __future__ import annotations
 
@@ -29,25 +41,26 @@ from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import quant_matmul as _qmm
 from repro_torch.kernels import ref
 from repro_torch.kernels import ssd_scan as _ssd
-from repro_torch.sharding.policy import is_dtensor, redistribute
+from repro_torch.sharding.policy import is_dtensor, redistribute, seq_rank
 
 
 def _sharded(*inputs) -> bool:
     return any(is_dtensor(t) for t in inputs)
 
 
-def _plan(mesh, sizes: dict, candidates) -> List[Optional[int]]:
+def _plan(mesh, sizes: dict, candidates, skip=()) -> List[Optional[int]]:
     """Per mesh dim, the tensor dim the work splits on there, or None
     (replicated): the first of ``candidates`` (``(tensor, dims)`` pairs)
     sharded on that mesh dim over one of its ``dims``, where that dim's
     remaining size (``sizes``, divided as shards are taken) splits evenly
-    over the mesh dim."""
+    over the mesh dim.  Mesh dims in ``skip`` are left None."""
     plan = []
     for i, n in enumerate(mesh.shape):
-        dim = next((x.placements[i].dim for x, dims in candidates
-                    if is_dtensor(x) and x.placements[i].is_shard()
-                    and x.placements[i].dim in dims
-                    and sizes[x.placements[i].dim] % n == 0), None)
+        dim = None if i in skip else next((
+            x.placements[i].dim for x, dims in candidates
+            if is_dtensor(x) and x.placements[i].is_shard()
+            and x.placements[i].dim in dims
+            and sizes[x.placements[i].dim] % n == 0), None)
         if dim is not None:
             sizes[dim] //= n
         plan.append(dim)
@@ -61,6 +74,18 @@ def _placed(plan, dims: dict) -> tuple:
     from torch.distributed.tensor import Replicate, Shard
     return tuple(Shard(dims[d]) if d is not None and dims.get(d) is not None
                  else Replicate() for d in plan)
+
+
+def _seq_dims(mesh, x) -> Tuple[int, ...]:
+    """The mesh dims of more than one rank that shard ``x``'s dim 1 (its
+    sequence), when they split it evenly (else none: an uneven split is
+    gathered)."""
+    if not is_dtensor(x):
+        return ()
+    dims = tuple(i for i, p in enumerate(x.placements)
+                 if p.is_shard() and p.dim == 1 and mesh.shape[i] > 1)
+    n = math.prod(mesh.shape[i] for i in dims)
+    return dims if x.shape[1] % n == 0 else ()
 
 
 class _ContiguousGrad(torch.autograd.Function):
@@ -125,19 +150,39 @@ def on_shards(fn: Callable, *args, **kwargs):
     """``fn`` (a wrapper of this module or its plain version in ``ref``)
     on the local shards of DTensor arguments; see the module docstring.
     Returns DTensors on the placements the work was split by."""
-    kind = _KIND[getattr(fn, "__name__", "")]
+    name = getattr(fn, "__name__", "")
+    kind = _KIND[name]
     mesh = next(a.device_mesh for a in args + tuple(kwargs.values())
                 if is_dtensor(a))
-    if kind == "attention":
+    if kind in ("flash", "decode"):
         # batch, or heads where KV and H both divide (every local query
-        # head keeps its kv head); q's sharding first, then k's
+        # head keeps its kv head); q's sharding first, then k's.  The mesh
+        # dims that shard the cache's positions (decode) or the queries'
+        # rows (prefill) split the sequence instead.
         q, k, v = args[:3]
+        x = k if kind == "decode" else q
+        seq = _seq_dims(mesh, x)
         plan = _plan(mesh, {0: q.shape[0],
                             2: math.gcd(q.shape[2], k.shape[2])},
-                     [(q, (0, 2)), (k, (0, 2))])
+                     [(q, (0, 2)), (k, (0, 2))], skip=seq)
         p = _placed(plan, {0: 0, 2: 2})
-        return run_local(lambda *t: fn(*t, *args[3:], **kwargs), mesh,
-                         (q, k, v), (p, p, p), (p,), (q.shape,))
+        if not seq:
+            return run_local(lambda *t: fn(*t, *args[3:], **kwargs), mesh,
+                             (q, k, v), (p, p, p), (p,), (q.shape,))
+        from torch.distributed.tensor import Shard
+        on_seq = tuple(Shard(1) if i in seq else pl
+                       for i, pl in enumerate(p))
+        S_local = x.shape[1] // math.prod(mesh.shape[i] for i in seq)
+        start = seq_rank(mesh, seq) * S_local
+        if kind == "decode":
+            return run_local(
+                lambda *t: _merged_decode(name, mesh, seq, *t,
+                                          _shard_len(args[3], start, S_local),
+                                          **kwargs),
+                mesh, (q, k, v), (p, on_seq, on_seq), (p,), (q.shape,))
+        return run_local(
+            lambda *t: fn(*t, *args[3:], q_offset=start, **kwargs), mesh,
+            (q, k, v), (on_seq, p, p), (on_seq,), (q.shape,))
     if kind == "ssd":
         x, dt, A, Bm, Cm = args
         init = kwargs.pop("init_state", None)
@@ -169,6 +214,37 @@ def on_shards(fn: Callable, *args, **kwargs):
                      ((x_q.shape[0], w_q.shape[1]),))
 
 
+def _shard_len(cache_len: int, start: int, S_local: int) -> int:
+    """The valid positions of the cache shard that starts at ``start``."""
+    return min(max(int(cache_len) - start, 0), S_local)
+
+
+def _merged_decode(name: str, mesh, seq: Sequence[int], q: torch.Tensor,
+                   k_shard: torch.Tensor, v_shard: torch.Tensor,
+                   valid_len: int, *, scale: Optional[float] = None
+                   ) -> torch.Tensor:
+    """A rank's decode output over a sequence-sharded cache: its shard's
+    share (the kernel's, or the plain version's where ``name`` is the
+    plain decode), merged over the mesh dims ``seq`` as the reference's
+    lowering merges the softmax: an all-reduce max of the log-sum-exps,
+    then one all-reduce sum of the weights and the weighted outputs
+    (``ref.merge_partials`` on stacked shares), cast to q's dtype."""
+    import torch.distributed._functional_collectives as funcol
+    share = (decode_attention_partial if name == "decode_attention"
+             else ref.decode_attention_partial_ref)
+    o, lse = share(q, k_shard, v_shard, valid_len, scale=scale)
+    m = lse
+    for i in seq:
+        m = funcol.all_reduce(m, "max", (mesh, i))
+    w = ref.merge_weights(lse, m)
+    hd = o.shape[-1]
+    acc = torch.cat([o[:, 0] * w[..., None], w[..., None]], dim=-1)
+    for i in seq:
+        acc = funcol.all_reduce(acc, "sum", (mesh, i))
+    out = acc[..., :hd] / torch.clamp_min(acc[..., hd:], 1e-30)
+    return out[:, None].to(q.dtype)
+
+
 def _on_cuda(x: torch.Tensor) -> bool:
     if x.device.type == "cuda":
         return True
@@ -191,14 +267,28 @@ def _kernel_path(name: str, *inputs: Optional[torch.Tensor]) -> bool:
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True,
-                    scale: Optional[float] = None) -> torch.Tensor:
-    """[B,Sq,H,hd] x [B,Skv,KV,hd]^2 -> [B,Sq,H,hd] (GQA, un-repeated KV)."""
+                    causal: bool = True, scale: Optional[float] = None,
+                    q_offset: Optional[int] = None) -> torch.Tensor:
+    """[B,Sq,H,hd] x [B,Skv,KV,hd]^2 -> [B,Sq,H,hd] (GQA, un-repeated KV).
+
+    ``q_offset`` (causal): the key position of q's first row, which sees
+    the keys up to it (``None``: ``Skv - Sq``, the last row sees all).  The
+    kernel takes K/V cut to their first ``q_offset + Sq`` positions (a view
+    along the sequence: bases and strides stay), where its own offset
+    ``Skv - Sq`` is ``q_offset``; the plain version masks the whole K/V."""
     if _sharded(q, k, v):
         return on_shards(flash_attention, q, k, v, causal=causal, scale=scale)
     if _kernel_path("flash_attention", q, k, v):
+        if causal and q_offset is not None:
+            end = int(q_offset) + q.shape[1]
+            if not q.shape[1] <= end <= k.shape[1]:
+                raise ValueError(f"flash_attention: q_offset {q_offset} "
+                                 f"puts {q.shape[1]} rows past "
+                                 f"{k.shape[1]} keys")
+            k, v = k[:, :end], v[:, :end]
         return _flash.flash_attention(q, k, v, causal=causal, scale=scale)
-    return ref.flash_attention_ref(q, k, v, causal=causal, scale=scale)
+    return ref.flash_attention_ref(q, k, v, causal=causal, scale=scale,
+                                   q_offset=q_offset)
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
@@ -213,6 +303,19 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                                         scale=scale)
     return ref.decode_attention_ref(q, k_cache, v_cache, cache_len,
                                     scale=scale)
+
+
+def decode_attention_partial(q: torch.Tensor, k_shard: torch.Tensor,
+                             v_shard: torch.Tensor, valid_len: int, *,
+                             scale: Optional[float] = None
+                             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One cache shard's share of a decode step -> ``(o, lse)`` fp32
+    (``ref.decode_attention_partial_ref``); ``valid_len`` 0..S_local."""
+    if _kernel_path("decode_attention_partial", q, k_shard, v_shard):
+        return _decode.decode_attention_partial(q, k_shard, v_shard,
+                                                valid_len, scale=scale)
+    return ref.decode_attention_partial_ref(q, k_shard, v_shard, valid_len,
+                                            scale=scale)
 
 
 def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
@@ -263,7 +366,7 @@ def quant_linear(x: torch.Tensor, w_q: torch.Tensor,
 
 # which placements each function's work is local on (``on_shards``)
 _KIND = {f.__name__: kind for f, kind in (
-    (flash_attention, "attention"), (ref.flash_attention_ref, "attention"),
-    (decode_attention, "attention"), (ref.decode_attention_ref, "attention"),
+    (flash_attention, "flash"), (ref.flash_attention_ref, "flash"),
+    (decode_attention, "decode"), (ref.decode_attention_ref, "decode"),
     (ssd_scan, "ssd"), (ref.ssd_scan_ref, "ssd"),
     (quant_matmul, "quant"), (ref.quant_matmul_ref, "quant"))}

@@ -5,6 +5,10 @@ against on the card.  Like ``repro.kernels.ref`` they are deliberately
 naive: the whole ``S x S`` score matrix, fp32 math (float64 for float64
 inputs), ``-1e30`` as the mask value.  ``decode_attention_split_ref``
 is the split-KV algebra of the decode kernels (for the tests).
+``decode_attention_partial_ref`` is one cache shard's share of a decode
+step (its output and log-sum-exp) and ``merge_partials`` the merge of the
+shards' shares, which ``ops`` runs across the ranks of a mesh whose cache
+is sequence-sharded.
 ``ssd_scan_ref`` is the SSD's chunked dual form (the CPU path of
 ``ops.ssd_scan``); ``ssd_ref`` is its exact sequential recurrence, the
 oracle both are held against.  ``quant_matmul_ref`` and ``quantize_int8``
@@ -12,6 +16,7 @@ are the int8 path's (``repro.kernels.ref``'s of the same names).
 """
 from __future__ import annotations
 
+import math
 from typing import Optional, Tuple
 
 import torch
@@ -21,8 +26,15 @@ NEG_INF = -1e30
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         *, causal: bool = True,
-                        scale: Optional[float] = None) -> torch.Tensor:
-    """q: [B,Sq,H,hd]; k,v: [B,Skv,KV,hd] (KV divides H). Naive softmax."""
+                        scale: Optional[float] = None,
+                        q_offset: Optional[int] = None) -> torch.Tensor:
+    """q: [B,Sq,H,hd]; k,v: [B,Skv,KV,hd] (KV divides H). Naive softmax.
+
+    Causal: query row i sits at key position ``q_offset + i`` and sees the
+    keys up to it; ``None`` puts the last row at the last key (offset
+    ``Skv - Sq``).  A rank of a sequence-sharded prefill passes its rows'
+    global offset and the whole K/V, as the reference's
+    ``layers.flash_attention(q, k, v, positions, positions)`` masks them."""
     B, Sq, H, hd = q.shape
     Skv, KV = k.shape[1], k.shape[2]
     g = H // KV
@@ -31,7 +43,8 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     qf = q.to(f).reshape(B, Sq, KV, g, hd) * scale
     s = torch.einsum("bqkgd,bskd->bkgqs", qf, k.to(f))
     if causal:
-        rows = torch.arange(Sq, device=q.device)[:, None] + (Skv - Sq)
+        off = Skv - Sq if q_offset is None else int(q_offset)
+        rows = torch.arange(Sq, device=q.device)[:, None] + off
         mask = rows >= torch.arange(Skv, device=q.device)[None, :]
         s = s.masked_fill(~mask, NEG_INF)
     p = torch.softmax(s, dim=-1)
@@ -90,6 +103,57 @@ def decode_attention_split_ref(q: torch.Tensor, k_cache: torch.Tensor,
     acc = (w[..., None] * torch.stack(accs)).sum(dim=0)
     o = acc / torch.clamp_min(l, 1e-30)[..., None]
     return o.reshape(B, 1, H, hd).to(q.dtype)
+
+
+def decode_attention_partial_ref(q: torch.Tensor, k_shard: torch.Tensor,
+                                 v_shard: torch.Tensor, valid_len: int, *,
+                                 scale: Optional[float] = None
+                                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One cache shard's share of a decode step: q [B,1,H,hd] against the
+    first ``valid_len`` (a host int in ``0..S_local``) positions of
+    ``k_shard``/``v_shard`` [B,S_local,KV,hd].  Returns ``(o, lse)``: ``o``
+    [B,1,H,hd] normalised over the shard's valid positions and ``lse``
+    [B,H], the log of the softmax's denominator (``m + log l``), both fp32
+    (float64 for float64 inputs).  ``valid_len == 0`` gives ``o = 0`` and
+    ``lse = -inf``.  :func:`merge_partials` combines the shards' shares."""
+    B, S, KV, hd = k_shard.shape
+    H = q.shape[2]
+    g = H // KV
+    scale = scale if scale is not None else hd ** -0.5
+    f = torch.promote_types(q.dtype, torch.float32)
+    valid_len = int(valid_len)
+    if valid_len == 0:
+        return (torch.zeros(B, 1, H, hd, dtype=f, device=q.device),
+                torch.full((B, H), -math.inf, dtype=f, device=q.device))
+    qf = q.to(f)[:, 0].reshape(B, KV, g, hd) * scale
+    s = torch.einsum("bkgd,bskd->bkgs", qf, k_shard.to(f))
+    valid = torch.arange(S, device=q.device) < valid_len
+    s = s.masked_fill(~valid, NEG_INF)
+    m = s.amax(dim=-1)
+    p = torch.exp(s - m[..., None])
+    l = p.sum(dim=-1)
+    o = torch.einsum("bkgs,bskd->bkgd", p, v_shard.to(f)) / l[..., None]
+    return o.reshape(B, 1, H, hd), (m + torch.log(l)).reshape(B, H)
+
+
+def merge_weights(lse: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
+    """``exp(lse - m)`` with ``m`` the largest ``lse`` of a row: a shard
+    with no valid position (``lse = -inf``) weighs 0, also where every
+    shard of the row is empty (``m = -inf``: no NaN)."""
+    return torch.exp(lse - torch.where(torch.isinf(m), torch.zeros_like(m), m))
+
+
+def merge_partials(os: torch.Tensor, lses: torch.Tensor) -> torch.Tensor:
+    """The decode output of shards' shares stacked on a leading dim (``os``
+    [n,B,1,H,hd], ``lses`` [n,B,H] of :func:`decode_attention_partial_ref`
+    or the kernel's), as ``ops`` merges them across ranks: ``m`` the
+    largest ``lse``, ``w_i = exp(lse_i - m)``, and ``sum_i w_i o_i /
+    sum_i w_i`` (0 where every shard is empty), in the shares' dtype."""
+    m = lses.amax(dim=0)
+    w = merge_weights(lses, m)
+    num = (w[:, :, None, :, None] * os).sum(dim=0)
+    den = w.sum(dim=0)[:, None, :, None]
+    return num / torch.clamp_min(den, 1e-30)
 
 
 def _segsum_exp(cs: torch.Tensor) -> torch.Tensor:

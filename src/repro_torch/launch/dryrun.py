@@ -205,10 +205,15 @@ def _causal_pairs(Sq: int, Skv: int) -> int:
     return sum(max(0, min(Skv, i + off + 1)) for i in range(Sq))
 
 
-def _flash_work(out, q, k, v, *, causal: bool = True, scale=None):
+def _flash_work(out, q, k, v, *, causal: bool = True, scale=None,
+                q_offset=None):
     """(FLOPs, bytes) of the flash kernel on these (local) tensors: QK^T
     and PV over the pairs it computes, q, k and v read once and the
-    output written once."""
+    output written once.  A rank of a sequence-sharded prefill (its rows
+    at ``q_offset`` against the whole K/V) is counted as the busiest rank,
+    the last shard, whose rows sit at ``Skv - Sq``: the step takes as long
+    as it, and the dry-run's one rank (rank 0 of a ``fake`` group) holds
+    the first shard, the least work."""
     B, Sq, H, hd = q.shape
     Skv = k.shape[1]
     pairs = _causal_pairs(Sq, Skv) if causal else Sq * Skv
@@ -224,19 +229,31 @@ def _decode_work(out, q, k_cache, v_cache, cache_len, *, scale=None):
     return 4 * B * q.shape[2] * hd * L, _nbytes((q, out)) + caches
 
 
+def _partial_work(out, q, k_shard, v_shard, valid_len, *, scale=None):
+    """(FLOPs, bytes) of the partial decode kernel on one cache shard: as
+    :func:`_decode_work` over its ``valid_len`` positions, its output and
+    log-sum-exp written once (an empty shard launches nothing)."""
+    if not int(valid_len):
+        return 0, 0
+    flops, nbytes = _decode_work(out[0], q, k_shard, v_shard, valid_len)
+    return flops, nbytes + _nbytes(out[1])
+
+
 _KERNEL_WORK = {"flash_attention_ref": _flash_work,
-                "decode_attention_ref": _decode_work}
+                "decode_attention_ref": _decode_work,
+                "decode_attention_partial_ref": _partial_work}
 
 
 @contextlib.contextmanager
 def kernel_path(counter: StepCounter):
     """Under it ``counter``'s ``kernel_flops`` and ``kernel_bytes`` count
     the plain attention (``ref.flash_attention_ref``,
-    ``ref.decode_attention_ref``) at the work of the kernel that
-    ``impl="kernel"`` launches in its place: not the plain version's fp32
-    casts, its scores and the masked half it computes, but the kernel's
-    pairs and I/O.  The SSD scan and the int8 GEMM keep their plain
-    counts."""
+    ``ref.decode_attention_ref``, ``ref.decode_attention_partial_ref``) at
+    the work of the kernel that ``impl="kernel"`` launches in its place:
+    not the plain version's fp32 casts, its scores and the masked half it
+    computes, but the kernel's pairs and I/O.  A sequence-sharded prefill
+    counts the busiest rank's pairs (:func:`_flash_work`).  The SSD scan
+    and the int8 GEMM keep their plain counts."""
     from repro_torch.kernels import ref
     plain = {name: getattr(ref, name) for name in _KERNEL_WORK}
 
@@ -250,7 +267,9 @@ def kernel_path(counter: StepCounter):
                 counter.fused -= 1
             local = [_local(a) if isinstance(a, torch.Tensor) else a
                      for a in args]
-            flops, nbytes = _KERNEL_WORK[name](_local(out), *local, **kwargs)
+            res = (tuple(_local(o) for o in out) if isinstance(out, tuple)
+                   else _local(out))
+            flops, nbytes = _KERNEL_WORK[name](res, *local, **kwargs)
             counter.kernel_flops += flops
             counter.kernel_bytes += nbytes
             return out

@@ -8,6 +8,7 @@ and the hints name the port's levers (the flash and decode kernels,
 ``wgmma`` tiles, NCCL).
 
     PYTHONPATH=src python -m repro_torch.launch.report > /tmp/report.md
+    PYTHONPATH=src python -m repro_torch.launch.report cells   # moved cells
 """
 import glob
 import json
@@ -120,6 +121,38 @@ def before_after() -> str:
     return "\n".join(lines)
 
 
+def cell_deltas() -> str:
+    """Every cell whose count moved on either mesh between the baseline
+    (``results/dryrun_torch_baseline/``) and ``results/dryrun_torch/``: a
+    rank's all-gather, all-reduce and all-to-all bytes, plain FLOPs and
+    peak GB, before → after, pod / multipod in one row."""
+    def numbers(r):
+        c = r.get("collectives", {})
+        return (c.get("all-gather", 0.0), c.get("all-reduce", 0.0),
+                c.get("all-to-all", 0.0), r["cost"]["flops"],
+                r["memory"]["peak_memory_in_bytes"] / GB)
+
+    def counted(sub):
+        return {(r["arch"], r["shape"], r["mesh"]): numbers(r)
+                for r in _records(sub) if r.get("ok") and not r.get("skipped")}
+
+    base, now = counted("dryrun_torch_baseline"), counted("dryrun_torch")
+    meshes = ("pod", "multipod")
+    cells = sorted({k[:2] for k in now if k in base and now[k] != base[k]})
+    lines = ["| cell | all-gather B/rank | all-reduce B/rank | all-to-all "
+             "B/rank | FLOPs/rank | peak GB/rank |",
+             "|---|---|---|---|---|---|"]
+    for cell in cells:
+        cols = []
+        for i, fmt in enumerate(("{:.4g}",) * 4 + ("{:.2f}",)):
+            cols.append(" / ".join(
+                f"{fmt.format(base[cell + (m,)][i])} → "
+                f"{fmt.format(now[cell + (m,)][i])}"
+                for m in meshes if cell + (m,) in now and cell + (m,) in base))
+        lines.append(f"| {cell[0]} × {cell[1]} | " + " | ".join(cols) + " |")
+    return "\n".join(lines)
+
+
 if __name__ == "__main__":
     import sys
     which = sys.argv[1] if len(sys.argv) > 1 else "all"
@@ -130,3 +163,5 @@ if __name__ == "__main__":
         print("\n### roofline\n" + roofline_table("pod"))
     if which in ("all", "perf"):
         print("\n### before/after\n" + before_after())
+    if which in ("all", "cells"):
+        print("\n### cells moved\n" + cell_deltas())

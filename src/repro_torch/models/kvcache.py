@@ -23,7 +23,8 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import ssm as ssm_mod
-from repro_torch.sharding.policy import NULL_POLICY, ShardingPolicy
+from repro_torch.sharding.policy import (NULL_POLICY, ShardingPolicy,
+                                         is_dtensor, redistribute, seq_rank)
 
 Cache = Dict[str, List]
 
@@ -39,14 +40,45 @@ def num_attn_applications(arch: ArchConfig) -> int:
 
 
 def init_kv(arch: ArchConfig, batch: int, max_seq: int, dtype: torch.dtype,
-            device: torch.device) -> Cache:
-    """Zeroed KV caches of the attention applications (none for ssm)."""
+            device: torch.device,
+            policy: Optional[ShardingPolicy] = None) -> Cache:
+    """Zeroed KV caches of the attention applications (none for ssm),
+    pinned by ``policy`` when it has a mesh."""
+    policy = policy or NULL_POLICY
     n = num_attn_applications(arch)
     if not n:
         return {}
     shape = (batch, max_seq, arch.num_kv_heads, arch.head_dim)
-    return {name: [torch.zeros(shape, dtype=dtype, device=device)
+    return {name: [policy.pin(torch.zeros(shape, dtype=dtype, device=device),
+                              "batch", "cache_seq", "kvheads", None)
                    for _ in range(n)] for name in ("k", "v")}
+
+
+def write_prefix(cache: torch.Tensor, new: torch.Tensor) -> None:
+    """``new`` [B,S,KV,hd] written IN PLACE into the first S positions of
+    ``cache`` [B,max_seq,KV,hd].  A DTensor cache is written on its local
+    shards (no ``F.pad`` or slice assignment of a DTensor, which torch
+    2.11 refuses on a sharded dim): ``new`` goes to the cache's placements
+    but whole on the mesh dims that shard the cache's positions, and each
+    rank copies the positions its shard holds."""
+    if not is_dtensor(cache):
+        cache[:, :new.shape[1]] = new
+        return
+    from torch.distributed.tensor import DTensor, Replicate
+    mesh = cache.device_mesh
+    seq = [i for i, p in enumerate(cache.placements)
+           if p.is_shard() and p.dim == 1]
+    if not is_dtensor(new):
+        new = DTensor.from_local(new, mesh, [Replicate()] * mesh.ndim,
+                                 run_check=False)
+    new = redistribute(new, [Replicate() if i in seq else p
+                             for i, p in enumerate(cache.placements)])
+    local = cache.to_local()
+    S_local = local.shape[1]
+    start = seq_rank(mesh, seq) * S_local
+    n = min(max(new.shape[1] - start, 0), S_local)
+    if n:
+        local[:, :n] = new.to_local()[:, start:start + n]
 
 
 def init_cache(arch: ArchConfig, batch: int, max_seq: int,
@@ -54,12 +86,7 @@ def init_cache(arch: ArchConfig, batch: int, max_seq: int,
                policy: Optional[ShardingPolicy] = None) -> Cache:
     """Zeroed caches for ``batch`` sequences of up to ``max_seq`` tokens
     (the KV caches pinned by ``policy`` when it has a mesh)."""
-    policy = policy or NULL_POLICY
-    cache = init_kv(arch, batch, max_seq, dtype, device)
-    for name in ("k", "v"):
-        if name in cache:
-            cache[name] = [policy.pin(c, "batch", "cache_seq", "kvheads",
-                                      None) for c in cache[name]]
+    cache = init_kv(arch, batch, max_seq, dtype, device, policy)
     if arch.ssm is not None:
         cache["ssm"] = [ssm_mod.init_layer_state(arch, batch, dtype, device)
                         for _ in range(arch.num_layers)]

@@ -49,7 +49,7 @@ from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models import transformer as tfm
 from repro_torch.sharding.policy import (NULL_POLICY, PartitionSpec,
-                                         ShardingPolicy)
+                                         ShardingPolicy, is_dtensor)
 
 NUM_FRONTEND_POSITIONS = 64
 LOSS_IGNORE = -1
@@ -284,9 +284,27 @@ class Model(nn.Module):
         return self
 
     # ------------------------------------------------------------------
+    def _token_rows(self, tokens: torch.Tensor) -> torch.Tensor:
+        """``tokens`` split on the batch where the embedding table is
+        vocab-sharded and whole over the batch's mesh dims: each rank then
+        looks up, and reduces the lookup's pending sum of, its own rows
+        only (with the tokens whole, every rank reduced the whole batch)."""
+        table = self.embed
+        if not (self.sharded and is_dtensor(table) and any(
+                p.is_shard() and n > 1
+                for p, n in zip(table.placements, table.device_mesh.shape))):
+            return tokens
+        pol = self.policy
+        want = pol.placements_of(pol.pin_spec(tuple(tokens.shape), "batch",
+                                              None))
+        if any(w.is_shard() and not t.is_replicate()
+               for w, t in zip(want, table.placements)):
+            return tokens
+        return pol.pin(tokens, "batch", None)
+
     def embed_inputs(self, tokens: torch.Tensor,
                      frontend_embeds: Optional[torch.Tensor]) -> torch.Tensor:
-        h = layers.embed(tokens, self.embed).to(self.dtype)
+        h = layers.embed(self._token_rows(tokens), self.embed).to(self.dtype)
         if frontend_embeds is not None:
             h = self.policy.pin(h, "batch", "seq", None)
             P = frontend_embeds.shape[1]
@@ -325,8 +343,12 @@ class Model(nn.Module):
         arch, pol = self.arch, self.policy
         B, S = h.shape[:2]
         positions = self._positions(B, S)
-        if kv_seq is not None and not self.sharded:
-            cache = kvcache.init_kv(arch, B, kv_seq, self.dtype, self.device)
+        if kv_seq is not None:
+            # the reference pads the prefill's K/V to max_seq, then the
+            # decode steps pin the cache on cache_seq: the port allocates
+            # the cache on those placements and writes the prefix into it
+            cache = kvcache.init_kv(arch, B, kv_seq, self.dtype, self.device,
+                                    pol)
         elif kvcache.num_attn_applications(arch):
             cache = {"k": [], "v": []}
         else:
@@ -342,16 +364,9 @@ class Model(nn.Module):
             else:
                 h, (k, v) = self._block(tfm.dense_block_full, h, blk, arch,
                                         positions, self.impl, pol)
-            if kv_seq is not None and self.sharded:
-                # the reference pads the prefill's K/V to max_seq, then
-                # the decode steps pin the cache on cache_seq
-                for name, t in (("k", k), ("v", v)):
-                    cache[name].append(pol.pin(
-                        nn.functional.pad(t, (0, 0, 0, 0, 0, kv_seq - S)),
-                        "batch", "cache_seq", "kvheads", None))
-            elif kv_seq is not None:
-                cache["k"][i][:, :S] = k
-                cache["v"][i][:, :S] = v
+            if kv_seq is not None:
+                kvcache.write_prefix(cache["k"][i], k)
+                kvcache.write_prefix(cache["v"][i], v)
             elif want_cache:
                 cache["k"].append(k)
                 cache["v"].append(v)
@@ -435,7 +450,7 @@ class Model(nn.Module):
     def _decode(self, cache: kvcache.Cache, cache_len: int,
                 tokens: torch.Tensor) -> Tuple[torch.Tensor, kvcache.Cache]:
         arch, pol = self.arch, self.policy
-        h = layers.embed(tokens, self.embed).to(self.dtype)
+        h = layers.embed(self._token_rows(tokens), self.embed).to(self.dtype)
         h = pol.pin(h, "batch", None, None)
 
         def attend(h, blk, i):

@@ -316,6 +316,7 @@ def moe_block_decode(h: torch.Tensor, blk: MoEBlock, arch: ArchConfig,
                      policy: Optional[ShardingPolicy] = None) -> torch.Tensor:
     """Attention + MoE MLP block for one token; updates the caches in
     place."""
-    h = h + tfm.attention_decode(h, blk, arch, k_cache, v_cache, cache_len,
-                                 impl, policy)
-    return h + _mlp(h, blk, arch, dispatch, policy or NULL_POLICY)
+    h = tfm.residual(h, tfm.attention_decode(h, blk, arch, k_cache, v_cache,
+                                             cache_len, impl, policy), policy)
+    return tfm.residual(h, _mlp(h, blk, arch, dispatch, policy or NULL_POLICY),
+                        policy)

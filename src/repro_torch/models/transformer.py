@@ -26,7 +26,8 @@ from torch import nn
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels import ops, ref
 from repro_torch.models import layers
-from repro_torch.sharding.policy import NULL_POLICY, PartitionSpec, ShardingPolicy
+from repro_torch.sharding.policy import (NULL_POLICY, PartitionSpec,
+                                         ShardingPolicy, redistribute)
 
 def attn_shapes(arch: ArchConfig) -> Dict[str, Tuple[int, ...]]:
     """Parameter shapes of one layer's attention (``transformer.py``
@@ -177,10 +178,18 @@ def decode_qkv(h: torch.Tensor, p: DenseBlock, arch: ArchConfig,
     q = layers.apply_rope(q, pos, arch.rope_theta)
     k = layers.apply_rope(k, pos, arch.rope_theta)
     if policy.mesh is not None:
+        from torch.distributed.tensor import Replicate
         sel = (torch.arange(k_cache.shape[1], device=k_cache.device)
                == index)[None, :, None, None]
         for cache, new in ((k_cache, k), (v_cache, v)):
-            new = torch.where(sel, new.to(cache.dtype), cache)
+            # the token on the cache's placements, whole over the mesh
+            # dims that shard the positions: the select then moves
+            # nothing (torch 2.11's DTensor otherwise reshards the cache
+            # to the token's head shards and back, two all-to-alls)
+            new = redistribute(new.to(cache.dtype), [
+                Replicate() if p.is_shard(1) else p
+                for p in cache.placements])
+            new = torch.where(sel, new, cache)
             cache.copy_(policy.pin(new, "batch", "cache_seq", "kvheads",
                                    None))
     elif isinstance(index, torch.Tensor):
@@ -241,12 +250,24 @@ def dense_block_full(h: torch.Tensor, p: DenseBlock, arch: ArchConfig,
     return policy.pin(h, "batch", "seq", None), kv
 
 
+def residual(h: torch.Tensor, x: torch.Tensor,
+             policy: Optional[ShardingPolicy] = None) -> torch.Tensor:
+    """``h + x`` for a decode step, pinned whole over the model axis: a
+    pending sum in ``x`` (the out-projection's, the MLP's) is all-reduced,
+    as GSPMD keeps the reference's one-token residual replicated.  Left to
+    DTensor, the sum is reduce-scattered over the model dim and the next
+    products gather their weights instead (the MLP's, the head's: two
+    orders of magnitude more bytes a step at the reduced widths)."""
+    return (policy or NULL_POLICY).pin(h + x, "batch", "seq", None)
+
+
 def dense_block_decode(h: torch.Tensor, p: DenseBlock, arch: ArchConfig,
                        k_cache: torch.Tensor, v_cache: torch.Tensor,
                        cache_len: int, impl: str = "kernel",
                        policy: Optional[ShardingPolicy] = None
                        ) -> torch.Tensor:
     """Pre-norm residual block for one token; updates the caches in place."""
-    h = h + attention_decode(h, p, arch, k_cache, v_cache, cache_len,
-                             impl, policy)
-    return h + mlp(h, p, arch, policy)
+    policy = policy or NULL_POLICY
+    h = residual(h, attention_decode(h, p, arch, k_cache, v_cache, cache_len,
+                                     impl, policy), policy)
+    return residual(h, mlp(h, p, arch, policy), policy)

@@ -94,6 +94,17 @@ def redistribute(x, placements):
     return x.redistribute(mesh, placements).contiguous()
 
 
+def seq_rank(mesh, dims) -> int:
+    """This rank's index over the mesh dims ``dims`` that shard one tensor
+    dim, in placement order (the first dim the outermost, as DTensor cuts
+    it); rank 0 of a ``fake`` group (the dry-run's) is index 0."""
+    coord = mesh.get_coordinate()
+    r = 0
+    for i in dims:
+        r = r * mesh.shape[i] + coord[i]
+    return r
+
+
 def _axis_size(mesh, name: str) -> int:
     return mesh_shape(mesh).get(name, 1)
 

@@ -136,6 +136,63 @@ def counted(module, *names):
             setattr(module, n, fn)
 
 
+@contextlib.contextmanager
+def attention_calls():
+    """The plain attention calls (the CPU path of the kernels) recorded
+    while the context lasts, in the dict it yields: ``flash`` (query rows,
+    keys, ``q_offset``), ``decode`` (cache positions) for a whole-cache
+    decode, ``partial`` (shard positions, valid positions) for a shard's
+    share of one."""
+    import functools
+
+    from repro_torch.kernels import ref
+    calls = {"flash": [], "decode": [], "partial": []}
+    saved = {n: getattr(ref, n) for n in (
+        "flash_attention_ref", "decode_attention_ref",
+        "decode_attention_partial_ref")}
+
+    def record(name, what):
+        @functools.wraps(saved[name])
+        def run(*args, **kwargs):
+            calls[what].append(
+                (args[0].shape[1], args[1].shape[1], kwargs.get("q_offset"))
+                if what == "flash" else
+                (args[1].shape[1],) if what == "decode" else
+                (args[1].shape[1], int(args[3])))
+            return saved[name](*args, **kwargs)
+        return run
+
+    for name, what in (("flash_attention_ref", "flash"),
+                       ("decode_attention_ref", "decode"),
+                       ("decode_attention_partial_ref", "partial")):
+        setattr(ref, name, record(name, what))
+    try:
+        yield calls
+    finally:
+        for name, fn in saved.items():
+            setattr(ref, name, fn)
+
+
+def _gather_shapes():
+    """A ``CommDebugMode`` that also keeps the shape of each all-gather's
+    local input (``gathered``)."""
+    from torch.distributed.tensor.debug import CommDebugMode
+
+    class GatherSizes(CommDebugMode):
+        def __init__(self):
+            super().__init__()
+            self.gathered = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = super().__torch_dispatch__(func, types, args, kwargs)
+            if (out is not NotImplemented and "all_gather" in
+                    str(getattr(func, "_overloadpacket", ""))):
+                self.gathered.append(tuple(args[0].shape))
+            return out
+
+    return GatherSizes()
+
+
 def _whole_state(state) -> dict:
     """An SSM layer state's fields whole, with their placements."""
     return {f: (t.full_tensor(), str(tuple(t.placements)))
@@ -145,8 +202,10 @@ def _whole_state(state) -> dict:
 def serve(rank: int, workdir: str) -> None:
     """Each case of ``serve_in.pt`` under its policy: full-sequence logits,
     the prefill's last logits and teacher-forced decode steps, greedy
-    tokens through ``Engine.generate``, the attention mode and the
-    collectives of one prefill."""
+    tokens through ``Engine.generate``, the attention mode, the
+    collectives of one prefill and of the decode steps (with the shapes
+    the decode steps all-gathered, and a layer's local cache shard's), and
+    every rank's plain attention calls (:func:`attention_calls`)."""
     from torch.distributed.tensor import DTensor
     from torch.distributed.tensor.debug import CommDebugMode
 
@@ -167,23 +226,34 @@ def serve(rank: int, workdir: str) -> None:
         prompt = tokens[:, :case["prompt"]]
         guard = no_dtensor_pad() if case.get("guard") else \
             contextlib.nullcontext()
-        with guard, counted(ssm, "conv_and_tail", "_out_proj_local") as calls:
+        with guard, counted(ssm, "conv_and_tail", "_out_proj_local") as calls, \
+                attention_calls() as attn:
             if case.get("forward"):
                 res["forward"] = m(tokens).full_tensor()
             with CommDebugMode() as mode:
                 logits, cache = m.prefill(prompt, max_seq=case["max_seq"])
             res["prefill_comms"] = _counts(mode)
+            if "k" in cache:
+                res["cache_shard"] = tuple(cache["k"][0].to_local().shape)
             if "ssm" in cache:
                 res["prefill_ssm"] = [_whole_state(st) for st in cache["ssm"]]
             steps = [logits.full_tensor()]
-            for i in range(case["steps"]):
-                pos = case["prompt"] + i
-                logits, cache = m.decode_step(cache, pos,
-                                              tokens[:, pos:pos + 1])
-                steps.append(logits.full_tensor())
+            decode_mode, decoded = _gather_shapes(), []
+            with decode_mode:
+                for i in range(case["steps"]):
+                    pos = case["prompt"] + i
+                    logits, cache = m.decode_step(cache, pos,
+                                                  tokens[:, pos:pos + 1])
+                    decoded.append(logits)
+            steps += [lg.full_tensor() for lg in decoded]
+            res["decode_comms"] = _counts(decode_mode)
+            res["decode_gathered"] = decode_mode.gathered
             if "ssm" in cache:
                 res["decode_ssm"] = [_whole_state(st) for st in cache["ssm"]]
         res["ssm_calls"] = dict(calls)
+        every = [None] * dist.get_world_size()
+        dist.all_gather_object(every, attn)
+        res["attention_calls"] = every
         res["steps"] = steps
         if case.get("generate"):
             eng = Engine(m, EngineConfig(max_batch=B,

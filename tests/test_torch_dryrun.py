@@ -412,6 +412,28 @@ def test_report_tables_on_a_synthetic_record(tmp_path, monkeypatch):
         report.before_after()
 
 
+def test_report_lists_the_cells_that_moved(tmp_path, monkeypatch):
+    """``cell_deltas`` lists a cell whose count moved, before -> after,
+    and leaves out one that did not."""
+    monkeypatch.setattr(report, "RES", str(tmp_path))
+    after = dict(SYNTHETIC, collectives={"all-gather": 1.6e9,
+                                         "all-reduce": 1.4e7},
+                 cost={"flops": 2.6e10, "bytes": 2.9e10})
+    before = json.loads(json.dumps(after))
+    before["collectives"]["all-gather"] = 1.7e10
+    same = dict(after, shape="prefill_32k")
+    for sub, recs in (("dryrun_torch", (after, same)),
+                      ("dryrun_torch_baseline", (before, same))):
+        (tmp_path / sub).mkdir()
+        for i, r in enumerate(recs):
+            with open(tmp_path / sub / f"{i}.json", "w") as f:
+                json.dump(r, f)
+    rows = report.cell_deltas().splitlines()[2:]
+    assert rows == ["| qwen2-7b × decode_32k | 1.7e+10 → 1.6e+09 | "
+                    "1.4e+07 → 1.4e+07 | 0 → 0 | 2.6e+10 → 2.6e+10 | "
+                    "85.00 → 85.00 |"]
+
+
 def test_cli_production_cell_and_roofline(tmp_path):
     """One production cell through the CLI on a host without a card, then
     its roofline row."""

@@ -285,6 +285,43 @@ def test_flash_bf16_refuses_misaligned_stride_on_gpu():
     assert fmod.launches == n + 1 and got.shape == q.shape
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_decode_partial_kernel_matches_plain_on_gpu(dtype):
+    """Each shard's share of a ragged-sharded cache through the partial
+    kernel (o, lse) against the plain share, the shares merged against the
+    whole-cache kernel; an empty shard launches nothing."""
+    dev = _cuda()
+    dt = getattr(torch, dtype)
+    tol = TOL if dtype == "float32" else BF16_TOL
+    bounds = (0, 256, 600, 777, 1000)
+    for (B, KV, G, hd) in [(8, 4, 7, 128), (3, 1, 8, 256), (2, 4, 1, 64),
+                           (8, 32, 1, 112)]:
+        q, kc, vc = (x.to(dev, dt) for x in _t(*_normal(
+            6, (B, 1, KV * G, hd), (B, 1000, KV, hd), (B, 1000, KV, hd))))
+        for cl in (1, 255, 256, 257, 600, 777, 1000):
+            shares = []
+            for lo, hi in zip(bounds, bounds[1:]):
+                valid = min(max(cl - lo, 0), hi - lo)
+                n = dmod.partial_launches
+                o, lse = dmod.decode_attention_partial(
+                    q, kc[:, lo:hi], vc[:, lo:hi], valid)
+                assert dmod.partial_launches == n + (valid > 0)
+                po, plse = ref.decode_attention_partial_ref(
+                    q, kc[:, lo:hi], vc[:, lo:hi], valid)
+                np.testing.assert_allclose(o.cpu().numpy(), po.cpu().numpy(),
+                                           **tol)
+                np.testing.assert_allclose(lse.cpu().numpy(),
+                                           plse.cpu().numpy(),
+                                           rtol=1e-3, atol=1e-3)
+                shares.append((o, lse))
+            got = ref.merge_partials(torch.stack([o for o, _ in shares]),
+                                     torch.stack([x for _, x in shares]))
+            want = dmod.decode_attention(q, kc, vc, cl)
+            np.testing.assert_allclose(got.to(dt).float().cpu().numpy(),
+                                       want.float().cpu().numpy(), **tol)
+
+
 # ---------------------------------------------------------------------------
 # the wrappers under DTensor (a model under a sharding policy)
 @pytest.fixture

@@ -408,11 +408,20 @@ SERVE_CASES = [
     # sharded over "model" (prefill), its head dim too where it decodes
     ("mamba2-130m", None, "prefill", True, 0),
     ("mamba2-130m", SSM_ODD, "decode", False, 0),
+    # one KV head (kvheads whole) and a cache of 64 positions: the model
+    # axis's second shard [32, 64) is empty through every decode step
+    ("qwen2-7b", QWEN_MQA, "decode", False, 8),
 ]
+LONG_CACHE = {("qwen2-7b", "decode", True): 64}
 CONTEXT = {("qwen2-7b", "prefill", True),
            ("llama4-scout-17b-a16e", "prefill", True),
            ("mamba2-130m", "prefill", False), ("mamba2-130m", "decode", True)}
 SSM_CASES = [i for i, c in enumerate(SERVE_CASES) if c[0] == "mamba2-130m"]
+
+
+def _max_seq(case) -> int:
+    name, replace, kind = case[:3]
+    return LONG_CACHE.get((name, kind, bool(replace)), MAX_SEQ)
 
 
 def _case_id(case) -> str:
@@ -436,27 +445,31 @@ def served(tmp_path_factory):
     tokens = np.random.default_rng(3).integers(
         0, 512, size=(B, PROMPT + STEPS)).astype(np.int32)
     cases, models = [], []
-    for name, replace, kind, forward, generate in SERVE_CASES:
+    for case in SERVE_CASES:
+        name, replace, kind, forward, generate = case
         jm, params, weights = _jax(name, replace,
                                    _jax_dispatch(name, kind, replace))
         models.append((jm, params))
+        max_seq = _max_seq(case)
         cases.append({"arch": name, "replace": replace or {}, "kind": kind,
-                      "seq_len": MAX_SEQ if kind == "decode" else PROMPT,
+                      "seq_len": max_seq if kind == "decode" else PROMPT,
                       "weights": weights,
                       "tokens": torch.from_numpy(tokens.astype(np.int64)),
-                      "prompt": PROMPT, "max_seq": MAX_SEQ, "steps": STEPS,
+                      "prompt": PROMPT, "max_seq": max_seq, "steps": STEPS,
                       "forward": forward, "generate": generate,
-                      # the SSM cases run with F.pad refusing DTensors
-                      "guard": name == "mamba2-130m"})
+                      # every case runs with F.pad refusing DTensors (the
+                      # SSM's conv halo, the prefill's padded cache)
+                      "guard": True})
     torch.save(cases, os.path.join(work, "serve_in.pt"))
     ranks = _torch_ranks.start(_torch_ranks.serve, work)
     want = []
     for (jm, params), case in zip(models, cases):
         w = {}
+        max_seq = case["max_seq"]
         if case["forward"]:
             w["forward"] = np.asarray(jax.jit(jm.forward)(
                 params, jnp.asarray(tokens)))
-        prefill = jax.jit(lambda p, t: jm.prefill(p, t, max_seq=MAX_SEQ))
+        prefill = jax.jit(lambda p, t: jm.prefill(p, t, max_seq=max_seq))
         decode = jax.jit(jm.decode_step)
         logits, cache = prefill(params, jnp.asarray(tokens[:, :PROMPT]))
         if "ssm" in cache:
@@ -472,7 +485,7 @@ def served(tmp_path_factory):
             w["decode_ssm"] = jax.tree.map(np.asarray, cache["ssm"])
         if case["generate"]:
             eng = JaxEngine(jm, params, JaxEngineConfig(max_batch=B,
-                                                        max_seq=MAX_SEQ))
+                                                        max_seq=max_seq))
             w["generate"] = eng.generate(tokens[:, :PROMPT],
                                          max_new=case["generate"])
         want.append(w)
@@ -501,6 +514,61 @@ def test_sharded_serving_matches_jax(served, index):
         assert np.array_equal(got["generate"], want["generate"])
     # a prefill over 4 ranks moves data: its collectives were counted
     assert sum(got["prefill_comms"].values()) > 0
+
+
+ATTN_CASES = [i for i, c in enumerate(SERVE_CASES)
+              if c[0] != "mamba2-130m"]
+
+
+@pytest.mark.parametrize("index", ATTN_CASES,
+                         ids=[_case_id(SERVE_CASES[i]) for i in ATTN_CASES])
+def test_sharded_decode_merges_cache_shards(served, index):
+    """Every decode step ran as flash-decode over the sequence-sharded
+    cache, as the reference's lowering does: each rank took its shard's
+    share on its valid positions (none where the shard lies past
+    ``cache_len``), no rank attended a whole cache, and no all-gather of
+    the decode steps took a layer's local cache shard; the shares were
+    merged with all-reduces."""
+    got = served[0][index]
+    case = SERVE_CASES[index]
+    assert got["rules"]["cache_seq"] == ("model",)
+    max_seq, model = _max_seq(case), 2
+    S_local = max_seq // model
+    calls = got["attention_calls"]
+    layers = len(calls[0]["partial"]) // STEPS
+    assert layers >= 1
+    for rank, seen in enumerate(calls):
+        assert seen["decode"] == []
+        start = (rank % model) * S_local      # the mesh is (data, model)
+        want = [(S_local, min(max(PROMPT + i + 1 - start, 0), S_local))
+                for i in range(STEPS) for _ in range(layers)]
+        assert seen["partial"] == want, rank
+    if index == len(SERVE_CASES) - 1:      # the long cache's empty shard
+        assert {v for _, v in calls[1]["partial"]} == {0}
+    assert got["cache_shard"] == (B // 2, S_local) + got["cache_shard"][2:]
+    assert got["cache_shard"] not in got["decode_gathered"], (
+        got["decode_gathered"])
+    assert got["decode_comms"].get(
+        "c10d_functional.all_reduce", 0) >= 2 * layers * STEPS
+
+
+@pytest.mark.parametrize("index", ATTN_CASES,
+                         ids=[_case_id(SERVE_CASES[i]) for i in ATTN_CASES])
+def test_context_prefill_attends_local_query_rows(served, index):
+    """In context mode each rank ran its own query rows (half the
+    sequence) at their global offset against the whole K/V, as the
+    reference's ``flash_attention(q, kr, vr, positions, positions)`` does;
+    in head_tp mode every rank ran every row."""
+    got = served[0][index]
+    name, replace, kind, forward = SERVE_CASES[index][:4]
+    context = (name, kind, bool(replace)) in CONTEXT
+    lengths = ([PROMPT + STEPS] if forward else []) + [PROMPT]
+    for rank, seen in enumerate(got["attention_calls"]):
+        flash = seen["flash"]
+        assert flash and {(k, off) for _, k, off in flash} <= {
+            (S, (rank % 2) * S // 2 if context else None) for S in lengths}
+        assert all(rows == (k // 2 if context else k)
+                   for rows, k, _ in flash), rank
 
 
 def _assert_states_close(got, want) -> None:
