@@ -24,10 +24,16 @@ token and position into them, replays the segments and returns the logits
 buffer of segment L, which the next step overwrites.  Without capture (on
 the CPU) the same segments run eagerly, so the split is held against
 ``Model.decode_step`` anywhere.
+
+Given a ``tracer`` (``obs.Tracer``), it records ``graphed.capture`` per
+batch size captured (args ``B``, ``graphs``), ``graphed.load`` per cache
+copy, and in each step ``graphed.inputs`` (the token and position writes)
+and one ``decode_attention`` span around each attention call: the host's
+time in the wrapper.  The replays between them are the enclosing span's.
 """
 from __future__ import annotations
 
-from typing import Dict, List, Optional
+from typing import TYPE_CHECKING, Dict, List, Optional
 
 import torch
 
@@ -35,6 +41,9 @@ from repro_torch.kernels import ops, ref
 from repro_torch.models import kvcache, layers
 from repro_torch.models import transformer as tfm
 from repro_torch.models.model import DENSE_FAMILIES, Model
+
+if TYPE_CHECKING:
+    from repro_torch.obs.tracing import Tracer
 
 
 class _Batch:
@@ -96,6 +105,24 @@ class _Batch:
         else:
             self.graphs[i].replay()
 
+    def load(self, cache: kvcache.Cache, S: int) -> None:
+        """Copy a prefill's first ``S`` positions into the static caches."""
+        for name, rows in (("k", self.k), ("v", self.v)):
+            for dst, src in zip(rows, cache[name]):
+                dst[:, :S].copy_(src[:, :S])
+
+    def inputs(self, tokens: torch.Tensor, cache_len: int) -> None:
+        """Write a step's tokens and position where the graphs read them."""
+        self.tok.copy_(tokens)
+        self.pos.fill_(cache_len)
+        self.idx.fill_(cache_len)
+
+    def attend(self, fn, i: int, cache_len: int) -> None:
+        """Layer ``i``'s decode attention (``fn``) over ``cache_len + 1``
+        positions, into the buffer the next segment reads."""
+        self.attn.copy_(fn(self.out[i][1], self.k[i], self.v[i],
+                           cache_len + 1))
+
 
 class GraphedDecode:
     """Greedy decode steps of one dense-family model against static caches
@@ -105,12 +132,14 @@ class GraphedDecode:
     first time :meth:`load` sees it (:meth:`capture_all` captures every
     size up front); elsewhere they run eagerly."""
 
-    def __init__(self, model: Model, max_batch: int, max_seq: int):
+    def __init__(self, model: Model, max_batch: int, max_seq: int,
+                 tracer: Optional[Tracer] = None):
         if model.arch.family not in DENSE_FAMILIES:
             raise ValueError(f"{model.arch.name}: graphed decode serves the "
                              f"dense families {DENSE_FAMILIES}, not "
                              f"{model.arch.family!r}")
         self.model = model
+        self.tracer = tracer
         self.max_batch, self.max_seq = max_batch, max_seq
         self.capture = model.device.type == "cuda"
         self.cache = kvcache.init_kv(model.arch, max_batch, max_seq,
@@ -128,8 +157,13 @@ class GraphedDecode:
             if not 1 <= B <= self.max_batch:
                 raise ValueError(f"batch {B} not in [1, {self.max_batch}]")
             b = _Batch(self, B)
-            if self.capture:
+            if self.capture and self.tracer is None:
                 b.capture(self._pool, self._side)
+            elif self.capture:
+                with self.tracer.span("graphed.capture", "graphed",
+                                      app=self.model.arch.name, B=B,
+                                      graphs=len(b.out)):
+                    b.capture(self._pool, self._side)
             self._batches[B] = b
         return b
 
@@ -149,9 +183,11 @@ class GraphedDecode:
             raise ValueError(f"{S} positions leave no room in max_seq "
                              f"{self.max_seq}")
         b = self._batch(B)
-        for name, rows in (("k", b.k), ("v", b.v)):
-            for dst, src in zip(rows, cache[name]):
-                dst[:, :S].copy_(src[:, :S])
+        if self.tracer is None:
+            b.load(cache, S)
+        else:
+            with self.tracer.span("graphed.load", "graphed", B=B, S=S):
+                b.load(cache, S)
         return {"k": b.k, "v": b.v}
 
     @torch.no_grad()
@@ -165,14 +201,21 @@ class GraphedDecode:
         if not 0 <= cache_len < self.max_seq:
             raise ValueError(f"cache_len {cache_len} not in "
                              f"[0, {self.max_seq})")
-        b.tok.copy_(tokens)
-        b.pos.fill_(cache_len)
-        b.idx.fill_(cache_len)
+        tr = self.tracer
+        if tr is None:
+            b.inputs(tokens, cache_len)
+        else:
+            with tr.span("graphed.inputs", "graphed"):
+                b.inputs(tokens, cache_len)
         attend = (ops.decode_attention if m.impl == "kernel"
                   else ref.decode_attention_ref)
         L = m.arch.num_layers
         for i in range(L):
             b.run(i)
-            b.attn.copy_(attend(b.out[i][1], b.k[i], b.v[i], cache_len + 1))
+            if tr is None:
+                b.attend(attend, i, cache_len)
+            else:
+                with tr.span("decode_attention", "graphed", layer=i):
+                    b.attend(attend, i, cache_len)
         b.run(L)
         return b.out[L]

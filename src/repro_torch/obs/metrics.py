@@ -31,7 +31,7 @@ __all__ = ["Counter", "Gauge", "Histogram", "MetricsRegistry", "Sample",
            "parse_exposition"]
 
 # flat structured sample: (name, kind, ((label, value), ...), value) —
-# what MetricsRegistry.snapshot() yields and the push exporter ships
+# what MetricsRegistry.snapshot() yields
 Sample = Tuple[str, str, Tuple[Tuple[str, str], ...], float]
 
 _DEF_BUCKETS = (0.005, 0.01, 0.025, 0.05, 0.1, 0.25, 0.5, 1.0, 2.5, 5.0,
@@ -241,11 +241,9 @@ class MetricsRegistry:
         return "\n".join(lines) + "\n"
 
     def snapshot(self) -> List[Sample]:
-        """Structured twin of :meth:`render` for the push exporter:
-        collectors run first, so the snapshot equals what a scrape at
-        the same instant would expose.  Histograms flatten to their
-        ``_count`` / ``_sum`` series (the statsd/OTLP sinks have no
-        native bucket shape)."""
+        """Structured twin of :meth:`render`: collectors run first, so the
+        snapshot equals what a scrape at the same instant would expose.
+        Histograms flatten to their ``_count`` / ``_sum`` series."""
         for fn in self._collectors:
             fn()
         out: List[Sample] = []

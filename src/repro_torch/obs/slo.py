@@ -147,8 +147,8 @@ class SloLedger:
     def _drain(self) -> None:
         log = self.pending
         if log:
-            # length snapshot: a push-exporter scrape may drain from its
-            # own thread while the event loop appends — entries past n
+            # length snapshot: a scrape may drain from its own thread
+            # while the event loop appends — entries past n
             # survive for the next drain instead of being clobbered
             n = len(log)
             rec = self.record
@@ -223,8 +223,7 @@ class SloPlane:
 
     Construct standalone and hand it to ``Instrumentation(slo=...)`` —
     the hook object calls :meth:`bind` with its registry so the SLO
-    families land in the same exposition the pull scrape and the push
-    exporter read."""
+    families land in the same exposition the scrape reads."""
 
     def __init__(self, *, latency_budget: float = 0.05,
                  accuracy_budget: float = 0.05,

@@ -3,7 +3,10 @@ real datapath): collects requests into fixed-shape batches (pad to the
 bucket), launches when full or when the head-of-line request has waited
 the batch-formation timeout, early-drops per the deadline rule.  A copy of
 ``repro.serving.batcher`` with the same semantics: prompts are left-padded
-with token 0 and no mask.
+with token 0 and no mask.  Under its engine's tracer each batch is one
+``batcher.pump`` span, from the batch's formation to its tokens, with its
+counts as args: ``B``, ``S``, ``prompt_tokens``, ``pad_tokens`` and the
+requests ``dropped`` by this call.
 """
 from __future__ import annotations
 
@@ -43,6 +46,7 @@ class Batcher:
     def pump(self) -> List[ServeRequest]:
         """Run at most one batch; returns completed requests."""
         now = self.clock()
+        dropped = self.dropped
         keep, batch = [], []
         for r in self.queue:
             if now > r.deadline_s:
@@ -56,6 +60,18 @@ class Batcher:
         if not batch or not self._ready(batch, now):
             self.queue = batch + self.queue
             return []
+        tr = self.engine.tracer
+        if tr is None:
+            return self._run(batch)
+        S = max(len(r.prompt) for r in batch)
+        prompt = sum(len(r.prompt) for r in batch)
+        with tr.span("batcher.pump", "batcher",
+                     app=self.engine.model.arch.name, B=len(batch), S=S,
+                     prompt_tokens=prompt, pad_tokens=len(batch) * S - prompt,
+                     dropped=self.dropped - dropped):
+            return self._run(batch)
+
+    def _run(self, batch: List[ServeRequest]) -> List[ServeRequest]:
         S = max(len(r.prompt) for r in batch)
         toks = np.zeros((len(batch), S), np.int32)
         for i, r in enumerate(batch):

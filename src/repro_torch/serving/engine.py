@@ -20,11 +20,24 @@ as the reference's engine jits its prefill with those shardings, and
 decodes eagerly: ``GraphedDecode``'s captured segments and static buffers
 hold plain tensors, not DTensors.  ``decode_mode`` says which ran.  The
 greedy tokens are gathered to every rank (``full_tensor``) each step.
+
+Given a ``tracer`` (``obs.Tracer``), the engine records its own spans, and
+``GraphedDecode`` its own: ``engine.generate`` around a batch, with
+``engine.prefill``, one ``engine.decode_step`` a step (the step, its
+``argmax`` and ``cpu_s``, the thread's CPU seconds over the span) and
+``engine.to_host`` inside it.  ``engine.generate``'s args carry
+``first_token_ms`` (entry to the first token's ``argmax``) and
+``token_gaps_ms`` (between consecutive tokens' ``argmax``): on a card from
+CUDA events read after the batch's own final copy, so tracing adds no
+synchronisation; elsewhere from the host clock, the device being the
+host.  Without a tracer each call site pays one ``is not None`` test and
+no event is created.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional, Tuple
+import time
+from typing import TYPE_CHECKING, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -33,6 +46,9 @@ from repro_torch.models import kvcache
 from repro_torch.models.graphed import GraphedDecode
 from repro_torch.models.model import DENSE_FAMILIES, Model
 from repro_torch.sharding.policy import whole
+
+if TYPE_CHECKING:
+    from repro_torch.obs.tracing import Tracer
 
 
 @dataclasses.dataclass
@@ -45,9 +61,11 @@ class Engine:
     """Batched greedy serving engine for one model instance; it runs on
     the model's device."""
 
-    def __init__(self, model: Model, cfg: EngineConfig):
+    def __init__(self, model: Model, cfg: EngineConfig,
+                 tracer: Optional[Tracer] = None):
         self.model = model.distribute()
         self.cfg = cfg
+        self.tracer = tracer
         self._graphed: Optional[GraphedDecode] = None
 
     @property
@@ -66,7 +84,7 @@ class Engine:
         m = self.model
         if self._graphed is None and self.decode_mode == "graphed":
             self._graphed = GraphedDecode(m, self.cfg.max_batch,
-                                          self.cfg.max_seq)
+                                          self.cfg.max_seq, self.tracer)
             self._graphed.capture_all()
         return self._graphed
 
@@ -74,6 +92,14 @@ class Engine:
                 ) -> Tuple[torch.Tensor, kvcache.Cache]:
         """tokens [B, S] -> (last-token logits [B, 1, V], the cache the
         decode steps of this batch run against)."""
+        if self.tracer is None:
+            return self._prefill(tokens)
+        with self.tracer.span("engine.prefill", "engine", B=tokens.shape[0],
+                              S=tokens.shape[1]):
+            return self._prefill(tokens)
+
+    def _prefill(self, tokens: torch.Tensor
+                 ) -> Tuple[torch.Tensor, kvcache.Cache]:
         dec = self._decoder()
         if dec is None:
             return self.model.prefill(tokens, max_seq=self.cfg.max_seq)
@@ -100,10 +126,27 @@ class Engine:
             raise ValueError(f"prompts {prompts.shape} exceed max_batch "
                              f"{self.cfg.max_batch} / max_seq "
                              f"{self.cfg.max_seq}")
+        if self.tracer is None:
+            return self._generate(prompts, max_new, eos_id, None)
+        with self.tracer.span("engine.generate", "engine",
+                              app=self.model.arch.name, B=B, S=S,
+                              max_new=max_new) as span:
+            marks = _TokenMarks(self.model.device)
+            out = self._generate(prompts, max_new, eos_id, marks)
+            span.args.update(marks.read())
+        return out
+
+    def _generate(self, prompts: np.ndarray, max_new: int,
+                  eos_id: Optional[int],
+                  marks: Optional["_TokenMarks"]) -> np.ndarray:
+        B, S = prompts.shape
+        tr = None if marks is None else self.tracer
         tokens = torch.as_tensor(np.asarray(prompts, np.int64),
                                  device=self.model.device)
         logits, cache = self.prefill(tokens)
         tok = whole(logits[:, -1].argmax(-1, keepdim=True))
+        if marks is not None:
+            marks.mark()
         out = np.zeros((B, max_new), np.int32)
         done = np.zeros((B,), bool)
         steps: List[torch.Tensor] = []
@@ -118,8 +161,52 @@ class Engine:
                 steps.append(tok)
             if i == max_new - 1:
                 break
-            logits, cache = self.decode_step(cache, S + i, tok)
-            tok = whole(logits[:, -1].argmax(-1, keepdim=True))
+            if tr is None:
+                logits, cache = self.decode_step(cache, S + i, tok)
+                tok = whole(logits[:, -1].argmax(-1, keepdim=True))
+                continue
+            with tr.span("engine.decode_step", "engine", step=i) as span:
+                cpu0 = time.thread_time_ns()
+                logits, cache = self.decode_step(cache, S + i, tok)
+                tok = whole(logits[:, -1].argmax(-1, keepdim=True))
+                marks.mark()
+                span.args["cpu_s"] = (time.thread_time_ns() - cpu0) * 1e-9
         if steps:
-            out[:, :len(steps)] = torch.cat(steps, dim=1).cpu().numpy()
+            if tr is None:
+                out[:, :len(steps)] = torch.cat(steps, dim=1).cpu().numpy()
+            else:
+                with tr.span("engine.to_host", "engine"):
+                    out[:, :len(steps)] = torch.cat(steps,
+                                                    dim=1).cpu().numpy()
         return out
+
+
+class _TokenMarks:
+    """A mark at ``generate``'s entry and after each token's ``argmax``:
+    CUDA events on a card, host seconds elsewhere."""
+
+    def __init__(self, device: torch.device):
+        self.cuda = device.type == "cuda"
+        self.stream = torch.cuda.current_stream(device) if self.cuda else None
+        self.marks: list = []
+        self.mark()
+
+    def mark(self) -> None:
+        if self.cuda:
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record(self.stream)
+            self.marks.append(ev)
+        else:
+            self.marks.append(time.perf_counter())
+
+    def read(self) -> dict:
+        """``first_token_ms`` and ``token_gaps_ms`` (one fewer than the
+        tokens); on a card, once the last event has completed (the batch's
+        own copy to the host has waited for it already)."""
+        m = self.marks
+        if self.cuda:
+            m[-1].synchronize()
+            ms = [a.elapsed_time(b) for a, b in zip(m, m[1:])]
+        else:
+            ms = [(b - a) * 1e3 for a, b in zip(m, m[1:])]
+        return {"first_token_ms": ms[0], "token_gaps_ms": ms[1:]}
