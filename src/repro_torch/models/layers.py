@@ -4,6 +4,10 @@ PyTorch counterparts of ``repro.models.layers``: weights keep the JAX
 package's unflattened layouts (``[d, H, hd]`` projections) and norm,
 rotary and logit math runs in fp32 whatever the parameter dtype (in
 float64 in a float64 model, the yardstick of the fp32 gradients).
+Logits are fp32: on the card, from bf16 activations and a bf16 table
+read in place (bf16 operands, fp32 products and accumulation, as the
+reference's ``preferred_element_type``); elsewhere from operands upcast
+first.  ``logit_routes`` tallies which of the two each call took.
 Attention itself lives in ``repro_torch.kernels``.
 """
 from __future__ import annotations
@@ -206,7 +210,38 @@ def embed(tokens: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
     return table[tokens]
 
 
+logit_routes = {"bf16": 0, "upcast": 0}
+
+
+def _on_card(t: torch.Tensor) -> bool:
+    return t.device.type == "cuda"
+
+
+def reads_in_place(x: torch.Tensor, head: torch.Tensor) -> bool:
+    """Whether :func:`logits` reads ``x`` and ``head`` as they are stored:
+    both bf16 on the card, neither a DTensor, with autograd not recording
+    them (the bf16-operand product has no derivative)."""
+    if is_dtensor(x) or is_dtensor(head):
+        return False
+    if torch.is_grad_enabled() and (x.requires_grad or head.requires_grad):
+        return False
+    return (_on_card(x) and _on_card(head)
+            and x.dtype == head.dtype == torch.bfloat16)
+
+
 def logits(x: torch.Tensor, head: torch.Tensor) -> torch.Tensor:
     """[B,S,d] @ [d,V] -> fp32 logits.  The products of two bf16 values are
-    exact in fp32, so this equals an fp32-accumulated bf16 product."""
+    exact in fp32, so both routes compute an fp32-accumulated product of
+    the operands, and differ only in summation order.  Where
+    :func:`reads_in_place`, one bf16-operand GEMM with fp32 compute and
+    output reads the table once (a tied table's ``embed.T`` view as it
+    is); otherwise ``x`` and ``head`` are upcast and multiplied in fp32
+    (float64 stays float64).  ``logit_routes`` counts the calls by route:
+    under CUDA graphs, eager calls and captures, not replays."""
+    if reads_in_place(x, head):
+        logit_routes["bf16"] += 1
+        y = torch.mm(x.reshape(-1, x.shape[-1]), head,
+                     out_dtype=torch.float32)
+        return y.reshape(*x.shape[:-1], y.shape[-1])
+    logit_routes["upcast"] += 1
     return linear(upcast(x), upcast(head))

@@ -23,9 +23,11 @@ greedy tokens are gathered to every rank (``full_tensor``) each step.
 
 Given a ``tracer`` (``obs.Tracer``), the engine records its own spans, and
 ``GraphedDecode`` its own: ``engine.generate`` around a batch, with
-``engine.prefill``, one ``engine.decode_step`` a step (the step, its
-``argmax`` and ``cpu_s``, the thread's CPU seconds over the span) and
-``engine.to_host`` inside it.  ``engine.generate``'s args carry
+``engine.prefill`` (its arg ``head``: the route of ``layers.logits``
+that served the prefill's head, ``bf16`` or ``upcast``), one
+``engine.decode_step`` a step (the step, its ``argmax`` and ``cpu_s``,
+the thread's CPU seconds over the span) and ``engine.to_host`` inside
+it.  ``engine.generate``'s args carry
 ``first_token_ms`` (entry to the first token's ``argmax``) and
 ``token_gaps_ms`` (between consecutive tokens' ``argmax``): on a card from
 CUDA events read after the batch's own final copy, so tracing adds no
@@ -42,7 +44,7 @@ from typing import TYPE_CHECKING, List, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.models import kvcache
+from repro_torch.models import kvcache, layers
 from repro_torch.models.graphed import GraphedDecode
 from repro_torch.models.model import DENSE_FAMILIES, Model
 from repro_torch.sharding.policy import whole
@@ -95,8 +97,12 @@ class Engine:
         if self.tracer is None:
             return self._prefill(tokens)
         with self.tracer.span("engine.prefill", "engine", B=tokens.shape[0],
-                              S=tokens.shape[1]):
-            return self._prefill(tokens)
+                              S=tokens.shape[1]) as span:
+            before = dict(layers.logit_routes)
+            out = self._prefill(tokens)
+            span.args["head"] = "+".join(
+                r for r, n in layers.logit_routes.items() if n > before[r])
+            return out
 
     def _prefill(self, tokens: torch.Tensor
                  ) -> Tuple[torch.Tensor, kvcache.Cache]:

@@ -5,8 +5,10 @@ On the CPU the segments run eagerly: each step must give exactly the
 logits and caches of ``Model.decode_step`` (the same ops in the same
 order), for every dense arch and for batch sizes that come and go.  On a
 card (``gpu`` marker) the segments replay as CUDA graphs: the engine's
-tokens equal eager decoding's, and every step still calls the decode
-kernel's wrapper once per layer."""
+tokens equal eager decoding's, in fp32 and in bf16, and every step still
+calls the decode kernel's wrapper once per layer.  Also on the card, the
+logit head's in-place bf16 route (``layers.logits``) against its upcast
+route at qwen2-7b's and gemma-2b's full head widths."""
 import dataclasses
 
 import numpy as np
@@ -92,16 +94,23 @@ def test_engine_decodes_eagerly_on_cpu():
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
 @pytest.mark.parametrize("name", ["gemma-2b", "qwen2-7b"])
-def test_graphed_engine_matches_eager_on_gpu(name):
+def test_graphed_engine_matches_eager_on_gpu(name, dtype):
     """The engine's graphed steps against the model's eager steps on the
-    card (fp32, full widths, 2 layers: the kernels take head dims 64-256):
-    the same greedy tokens, logits within 1e-5 of each other, and one
-    decode-kernel launch per layer a step."""
+    card (full widths, 2 layers: the kernels take head dims 64-256): the
+    same greedy tokens, logits within 1e-5 of each other in fp32 and 2e-2
+    in bf16 (the graphs' GEMMs may sum in another order, rounded to bf16
+    between layers), and one decode-kernel launch per layer a step.  In
+    bf16 every head, eager or captured, reads its table in place."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     from repro_torch.kernels import decode_attention as dmod
-    m = _model(name, device="cuda",
+    from repro_torch.models import layers
+    tol = 1e-5 if dtype == torch.float32 else 2e-2
+    routes = dict(layers.logit_routes)
+    m = _model(name, device="cuda", dtype=dtype,
                arch=dataclasses.replace(ARCHS[name], num_layers=2))
     B, S, new = 3, 12, 6
     eng = Engine(m, EngineConfig(max_batch=4, max_seq=32))
@@ -113,10 +122,58 @@ def test_graphed_engine_matches_eager_on_gpu(name):
     for i in range(new):
         logits, cache = eng.decode_step(cache, S + i, tok)
         want_logits, want_cache = m.decode_step(want_cache, S + i, want_tok)
-        assert _rel_err(logits, want_logits) < 1e-5
+        assert logits.dtype == want_logits.dtype == torch.float32
+        assert _rel_err(logits, want_logits) < tol
         tok = logits[:, -1].argmax(-1, keepdim=True)
         want_tok = want_logits[:, -1].argmax(-1, keepdim=True)
         assert torch.equal(tok, want_tok)
     assert dmod.launches - n0 == 2 * new * m.arch.num_layers
     got = eng.generate(prompts.cpu().numpy().astype(np.int32), max_new=new)
     assert got.shape == (B, new)
+    taken = {r: layers.logit_routes[r] - n for r, n in routes.items()}
+    if dtype == torch.bfloat16:
+        assert taken["upcast"] == 0 and taken["bf16"] > 0
+    else:
+        assert taken["bf16"] == 0
+
+
+# qwen2-7b's untied head [3584, 152064] at decode batches and one prefill;
+# gemma-2b's tied table [256000, 2048] read through its transposed view
+HEADS = [("qwen2-7b", 1, 1), ("qwen2-7b", 8, 1), ("qwen2-7b", 32, 1),
+         ("qwen2-7b", 2, 64), ("gemma-2b", 8, 1)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,B,S", HEADS)
+def test_logits_read_the_bf16_table_in_place_on_gpu(name, B, S):
+    """``layers.logits`` on bf16 operands on the card: the in-place route
+    against the upcast route (the same operands in fp32), which differ
+    only in summation order: within 1e-4 of the largest |logit|, the same
+    argmax on every row, and the tally shows which route ran."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.models import layers
+    arch = ARCHS[name]
+    d, V = arch.d_model, arch.vocab_size
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(B * 1000 + S)
+    x = torch.randn((B, S, d), generator=gen, device="cuda"
+                    ).to(torch.bfloat16)
+    if arch.tie_embeddings:
+        table = (torch.randn((V, d), generator=gen, device="cuda") * 0.02
+                 ).to(torch.bfloat16)
+        head, wide = table.T, table.float().T
+    else:
+        head = (torch.randn((d, V), generator=gen, device="cuda") * 0.02
+                ).to(torch.bfloat16)
+        wide = head.float()
+    n = dict(layers.logit_routes)
+    with torch.no_grad():
+        got = layers.logits(x, head)
+        assert layers.logit_routes["bf16"] == n["bf16"] + 1
+        want = layers.logits(x.float(), wide)
+        assert layers.logit_routes["upcast"] == n["upcast"] + 1
+    assert got.dtype == torch.float32 and got.shape == (B, S, V)
+    gap = float((got - want).abs().max())
+    assert gap <= 1e-4 * float(want.abs().max()), gap
+    assert torch.equal(got.argmax(-1), want.argmax(-1))

@@ -113,6 +113,88 @@ def test_layers_match_jax():
                                    rtol=2e-5, atol=2e-5)
 
 
+def _head_operands(dtype, seed=3):
+    g = torch.Generator().manual_seed(seed)
+    return (torch.randn(2, 3, 16, generator=g).to(dtype),
+            torch.randn(16, 40, generator=g).to(dtype))
+
+
+def _upcast_product(x, head):
+    """The upcast route's arithmetic: both operands in fp32 (float64 as it
+    is), one product."""
+    f = torch.promote_types(x.dtype, torch.float32)
+    return x.to(f) @ head.to(f)
+
+
+def _route_of(fn):
+    """``fn()`` and the one route of ``layers.logits`` it took."""
+    before = dict(tl.logit_routes)
+    out = fn()
+    grew = {r: n - before[r] for r, n in tl.logit_routes.items()
+            if n != before[r]}
+    assert len(grew) == 1 and sum(grew.values()) == 1, grew
+    return out, next(iter(grew))
+
+
+@pytest.mark.parametrize("case", ["cpu", "fp32", "float64", "dtensor",
+                                  "autograd"])
+def test_logits_take_the_upcast_route_off_the_card(case, monkeypatch):
+    """``layers.logits`` reads a bf16 table in place only on the card, on
+    bf16 operands that are plain tensors and that autograd does not record.
+    Every other call takes the upcast route, counted by the tally, and
+    computes what it always has.  Past ``cpu`` the card is stood in for
+    (``_on_card`` forced), so each clause is what refuses the route: bf16
+    plain operands under no grad would read in place."""
+    if case != "cpu":
+        monkeypatch.setattr(tl, "_on_card", lambda t: True)
+        with torch.no_grad():
+            assert tl.reads_in_place(*_head_operands(torch.bfloat16))
+    if case in ("cpu", "fp32", "float64"):
+        dtype = {"cpu": torch.bfloat16, "fp32": torch.float32,
+                 "float64": torch.float64}[case]
+        x, head = _head_operands(dtype)
+        assert not tl.reads_in_place(x, head)
+        got, route = _route_of(lambda: tl.logits(x, head))
+        assert route == "upcast"
+        assert got.dtype == torch.promote_types(dtype, torch.float32)
+        assert torch.equal(got, _upcast_product(x, head))
+    elif case == "dtensor":
+        import torch.distributed as dist
+        from torch.distributed.tensor import DTensor, Replicate
+        from torch.testing._internal.distributed.fake_pg import FakeStore
+        from repro_torch.launch import mesh as tmesh
+        x, head = _head_operands(torch.bfloat16)
+        dist.init_process_group("fake", store=FakeStore(), rank=0,
+                                world_size=1)
+        try:
+            mesh = tmesh.make_host_mesh([("model", 1)], device_type="cpu")
+            dx, dh = (DTensor.from_local(t, mesh, [Replicate()])
+                      for t in (x, head))
+            with torch.no_grad():
+                assert not tl.reads_in_place(x, dh)
+                got, route = _route_of(lambda: tl.logits(dx, dh))
+        finally:
+            dist.destroy_process_group()
+        assert route == "upcast"
+        assert torch.equal(got.to_local(), _upcast_product(x, head))
+    else:
+        m = Model(ARCHS["qwen2-7b"].reduced(), device="cpu",
+                  dtype=torch.bfloat16, impl="plain")
+        m.init(torch.Generator().manual_seed(0)).requires_grad_(True)
+        rng = np.random.default_rng(4)
+        tokens = torch.from_numpy(rng.integers(
+            0, m.arch.vocab_size, size=(2, 6)).astype(np.int64))
+        batch = {"tokens": tokens, "labels": tokens.roll(-1, 1)}
+        x, head = _head_operands(torch.bfloat16)
+        assert not tl.reads_in_place(x.requires_grad_(True), head)
+        loss, route = _route_of(lambda: m.loss(batch))
+        assert route == "upcast"
+        monkeypatch.undo()
+        assert torch.equal(loss, m.loss(batch))
+        loss.backward()
+        assert m.lm_head.grad is not None
+
+
 @pytest.mark.parametrize("name", ["qwen2-7b", "granite-3-2b"])
 def test_from_jax_params_round_trips(name, converted):
     jm, params, m = converted(name)

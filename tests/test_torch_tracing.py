@@ -174,7 +174,8 @@ def test_generate_records_one_batch_tree(max_new):
     assert len(gens) == 1 and tr.spans[gens[0]].parent is None
     g, gi = tr.spans[gens[0]], gens[0]
     assert (g.args["B"], g.args["S"], g.args["max_new"]) == (3, 9, max_new)
-    assert len(_children(tr.spans, gi, "engine.prefill")) == 1
+    prefills = _children(tr.spans, gi, "engine.prefill")
+    assert len(prefills) == 1 and prefills[0].args["head"] == "upcast"
     steps = _children(tr.spans, gi, "engine.decode_step")
     assert [s.args["step"] for s in steps] == list(range(max_new - 1))
     assert all(0.0 <= s.args["cpu_s"] for s in steps)
