@@ -29,7 +29,7 @@ from typing import Dict, List
 
 import numpy as np
 
-from portbench import count, load, models, reference
+from portbench import load
 from portbench.trace import DeviceTrace, span
 
 HOST = "127.0.0.1"
@@ -128,7 +128,8 @@ def run(run) -> None:
     engines, cfgs = {}, {}
     for i, a in enumerate(archs):
         cfgs[a] = app["models"][a]
-        m = models.build(cfgs[a], arch_seed(run.seed, i), run.device)
+        m = run.family(cfgs[a]).build(cfgs[a], arch_seed(run.seed, i),
+                                      run.device)
         engines[a] = Engine(m, EngineConfig(
             max_batch=app["engine"]["max_batch"],
             max_seq=cfgs[a]["serving_max_seq"]))
@@ -198,13 +199,8 @@ def run(run) -> None:
         if not cases[a]:
             run.fail(f"no {a} hop to compare")
             continue
-        weight = models.reference_weights(cfgs[a], arch_seed(run.seed, i),
-                                          run.device)
-        got = reference.judged_sequences(cfgs[a], weight, cases[a],
-                                         control=run.control)
-        run.check_served(f"logit_gap.{a}", got)
-        del weight
-        run.free()
+        run.judge_served(f"logit_gap.{a}", cfgs[a], arch_seed(run.seed, i),
+                         cases[a])
 
 
 def _account(run, client, t0, app, backend, cfgs) -> None:
@@ -263,9 +259,10 @@ def _account(run, client, t0, app, backend, cfgs) -> None:
                  f"graph's factors allow")
     run.counters["ok_roots"] = len(ok_roots)
     in_window = [h for h in backend.hops if h["start"] >= t0]
-    run.model_flops = sum(h["B"] * count.sequence_flops(cfgs[h["arch"]],
-                                                        h["S"], h["new"])
-                          for h in in_window)
+    run.model_flops = sum(
+        h["B"] * run.family(cfgs[h["arch"]]).sequence_flops(
+            cfgs[h["arch"]], h["S"], h["new"])
+        for h in in_window)
     run.model_s = run.window_s
     run.hops = [dict({k: h[k] for k in ("task", "arch", "B", "S", "new")},
                      start=h["start"] - t0, end=h["end"] - t0)

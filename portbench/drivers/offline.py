@@ -23,7 +23,7 @@ import time
 
 import numpy as np
 
-from portbench import count, load, models, reference
+from portbench import load
 from portbench.trace import DeviceTrace, span
 
 TRACED_BATCH = 1
@@ -57,7 +57,8 @@ def run(run) -> None:
     cfg, traffic = run.config, run.traffic
     serving = cfg["serving"]
     new = traffic["new_tokens"]
-    model = models.build(cfg, run.seed, run.device)
+    fam = run.family(cfg)
+    model = fam.build(cfg, run.seed, run.device)
     engine = Engine(model, EngineConfig(max_batch=serving["max_batch"],
                                         max_seq=serving["max_seq"]))
     queue = load.OfflineQueue(traffic, run.seed, cfg["vocab_size"])
@@ -109,13 +110,12 @@ def run(run) -> None:
         lens = [len(r.prompt) for r in done]
         rec = {"start": tb, "end": te, "B": len(done), "S": S,
                "prompt_lens": lens, "new": new, "traced": traced,
-               "flops": sum(count.sequence_flops(cfg, n, new) for n in lens)}
+               "flops": sum(fam.sequence_flops(cfg, n, new) for n in lens)}
         if len(prefills) > n_prefill:
             rec["prefill_s"] = prefills[-1][1] - prefills[-1][0]
             rec["decode_s"] = t_end - prefills[-1][1]
         if traced:
-            flash, decode = count.batch_attention_calls(cfg, len(done), S, new)
-            run.traced_work = {"flash": flash, "decode": decode}
+            run.traced_work = fam.kernel_work(cfg, len(done), S, new)
         run.batches.append(rec)
         print(f"batch {i}: B {len(done)} S {S} wall {te - tb:.4f} s"
               + (f" prefill {rec['prefill_s']:.4f} s" if "prefill_s" in rec
@@ -147,12 +147,8 @@ def run(run) -> None:
     if not cases:
         run.fail("no finished request to compare")
         return
-    weight = models.reference_weights(cfg, run.seed, run.device)
-    got = reference.judged_sequences(cfg, weight, cases, control=run.control)
+    got = run.judge_served("logit_gap", cfg, run.seed, cases)
     run.notes["compared_tokens"] = got["tokens"]
-    run.check_served("logit_gap", got)
-    del weight
-    run.free()
 
 
 def _sample(served, seed: int, new: int) -> list:

@@ -9,7 +9,10 @@ Everything of one cell is found by name from ``BENCHMARK.json``:
 * ``portbench/limits/<cell>.json``   the limit of each number ``correct``
   compares;
 * ``portbench/metrics/<metric>.py``  one reader a metric, end to end or
-  per layer: ``read(run) -> float or None``.
+  per layer: ``read(run) -> float or None``;
+* ``portbench/arch/<model_type>.py`` one file a model family, found by the
+  configuration's Hugging Face ``model_type``: its builder, seeded-weight
+  layout, plain reference and work counts (``FAMILY_API``).
 
 A cell that adds only files of these kinds and entries in
 ``BENCHMARK.json`` runs without an edit to any file here.
@@ -21,6 +24,7 @@ import importlib
 import importlib.util
 import json
 import math
+import re
 import sys
 import time
 from dataclasses import dataclass, field
@@ -28,6 +32,14 @@ from pathlib import Path
 from typing import Any, Dict, List, Optional
 
 FORBIDDEN = ("jax", "jaxlib", "flax", "repro")
+# what a family file gives, and all the benchmark uses of it:
+# build(cfg, seed, device) -> the port's model holding the seeded weights;
+# layout(cfg) -> [(name, shape, std)] in stream order;
+# logits(cfg, weight, seqs, rows, quant=None) -> the plain fp32 reference;
+# sequence_flops(cfg, prompt_len, new_tokens) -> one request's model FLOPs;
+# kernel_work(cfg, B, S, new_tokens) -> {kernel: [(FLOPs, bytes), ...]}
+FAMILY_API = ("build", "layout", "logits", "sequence_flops", "kernel_work")
+NAME = re.compile(r"[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}")
 
 
 def forbidden_modules() -> List[str]:
@@ -89,6 +101,18 @@ class Run:
     checks: List[Check] = field(default_factory=list)
     errors: List[str] = field(default_factory=list)
     notes: Dict[str, Any] = field(default_factory=dict)
+    families: Dict[str, Any] = field(default_factory=dict)
+
+    def family(self, model_cfg: dict):
+        """The family file of a model configuration (its ``model_type``),
+        loaded once a run."""
+        if "model_type" not in model_cfg:
+            raise KeyError(f"the configuration {model_cfg.get('name')!r} "
+                           f"states no model_type")
+        t = model_cfg["model_type"]
+        if t not in self.families:
+            self.families[t] = family(self.root, t)
+        return self.families[t]
 
     @property
     def on_cuda(self) -> bool:
@@ -119,6 +143,23 @@ class Run:
             self.check(name, got["control_gap"])
         else:
             self.check(name, got["gap"])
+
+    def judge_served(self, name: str, model_cfg: dict, seed: int,
+                     cases: list) -> dict:
+        """Judge the served ``cases`` of one model by its family's plain
+        reference, on weights made again from ``seed`` (the program's
+        state is freed first), and free them after."""
+        from portbench import reference, weights
+        fam = self.family(model_cfg)
+        weight = weights.all_weights(fam.layout(model_cfg), seed,
+                                     self.device,
+                                     weights.served_dtype(model_cfg))
+        got = reference.judged_sequences(fam, model_cfg, weight.__getitem__,
+                                         cases, self.control, self.device)
+        self.check_served(name, got)
+        del weight
+        self.free()
+        return got
 
     def fail(self, why: str) -> None:
         """A fault that makes the run not correct, whatever the numbers."""
@@ -151,14 +192,35 @@ def metric_entries(spec: dict, cell: str, trace: bool) -> List[dict]:
                 else m["moves"] in mine)]
 
 
-def reader(root: Path, name: str):
-    """The ``read`` function of ``portbench/metrics/<name>.py``."""
-    path = root / "portbench" / "metrics" / f"{name}.py"
+def _load(path: Path, prefix: str):
+    """The module of the file ``path``, loaded by its path."""
     mod_spec = importlib.util.spec_from_file_location(
-        "portbench_metric_" + name.replace(".", "_").replace("-", "_"), path)
+        prefix + path.stem.replace(".", "_").replace("-", "_"), path)
     mod = importlib.util.module_from_spec(mod_spec)
     mod_spec.loader.exec_module(mod)
-    return mod.read
+    return mod
+
+
+def reader(root: Path, name: str):
+    """The ``read`` function of ``portbench/metrics/<name>.py``."""
+    return _load(root / "portbench" / "metrics" / f"{name}.py",
+                 "portbench_metric_").read
+
+
+def family(root: Path, model_type: str):
+    """The family file ``portbench/arch/<model_type>.py``, loaded by its
+    path; it must give every function of ``FAMILY_API``."""
+    if not isinstance(model_type, str) or not NAME.fullmatch(model_type):
+        raise ValueError(f"not a model_type: {model_type!r}")
+    path = root / "portbench" / "arch" / f"{model_type}.py"
+    if not path.is_file():
+        raise FileNotFoundError(f"no family file for model_type "
+                                f"{model_type!r}: looked for {path}")
+    mod = _load(path, "portbench_arch_")
+    missing = [f for f in FAMILY_API if not callable(getattr(mod, f, None))]
+    if missing:
+        raise AttributeError(f"{path} lacks {missing}")
+    return mod
 
 
 def prepare(root: Path, workload: str, seed: int, seconds: float,

@@ -18,11 +18,14 @@ for p in (REPO / "src", REPO):
     if str(p) not in sys.path:
         sys.path.insert(0, str(p))
 
+# a dense model of the ``qwen2`` family (``portbench/arch/qwen2.py``); the
+# toy app's two models are of it too
 TOY_MODEL = {
-    "name": "toy", "kind": "model", "source": "toy", "hidden_act": "silu",
-    "hidden_size": 64, "intermediate_size": 128, "num_attention_heads": 4,
-    "num_hidden_layers": 2, "num_key_value_heads": 2, "rms_norm_eps": 1e-6,
-    "rope_theta": 10000.0, "tie_word_embeddings": False,
+    "name": "toy", "kind": "model", "source": "toy", "model_type": "qwen2",
+    "hidden_act": "silu", "hidden_size": 64, "intermediate_size": 128,
+    "num_attention_heads": 4, "num_hidden_layers": 2,
+    "num_key_value_heads": 2, "rms_norm_eps": 1e-6, "rope_theta": 10000.0,
+    "tie_word_embeddings": False,
     "torch_dtype": "float32", "vocab_size": 512, "head_dim": 16,
     "attention_bias": True, "serving": {"max_batch": 4, "max_seq": 48}}
 TOY_OFFLINE = {"kind": "offline", "prompt": {"median": 16, "sigma": 0.5,
@@ -136,6 +139,12 @@ def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     return "cuda"
+
+
+def qwen2():
+    """The ``qwen2`` family file of the repository's benchmark."""
+    from portbench import harness
+    return harness.family(REPO, "qwen2")
 
 
 def run_cell(root: Path, cell: str, seed: int = 7, seconds: float = 1.0,

@@ -22,11 +22,64 @@ def _digest(root: Path) -> dict:
             and "__pycache__" not in p.parts}
 
 
+# a second model family as a new file only: the ``qwen2`` family's
+# functions re-exported, each call counted
+TOYFAM = '''"""The toy family: the qwen2 family's functions, each call counted."""
+import collections
+from pathlib import Path
+
+from portbench import harness
+
+_dense = harness.family(Path(__file__).resolve().parents[2], "qwen2")
+CALLS = collections.Counter()
+
+
+def _counted(name):
+    inner = getattr(_dense, name)
+
+    def counted(*args, **kwargs):
+        CALLS[name] += 1
+        return inner(*args, **kwargs)
+    return counted
+
+
+build, layout, logits, sequence_flops, kernel_work = (
+    _counted(n) for n in harness.FAMILY_API)
+'''
+
+
+def _add_family_cell(root: Path) -> None:
+    """``toyfam.offline``: the toy model under ``model_type`` ``toyfam``,
+    as ``portbench/arch/toyfam.py``, a configuration, a limits file and
+    new entries in ``BENCHMARK.json``."""
+    pb = root / "portbench"
+    (pb / "arch/toyfam.py").write_text(TOYFAM)
+    cfg = json.loads((pb / "configs/toy.json").read_text())
+    cfg.update(name="toyfam", model_type="toyfam")
+    (pb / "configs/toyfam.json").write_text(json.dumps(cfg))
+    (pb / "limits/toyfam.offline.json").write_text(
+        (pb / "limits/toy.offline.json").read_text())
+    spec = harness.load_spec(root)
+    spec["configs"].append({"name": "toyfam", "source": "toy",
+                            "file": "portbench/configs/toyfam.json",
+                            "reduced": [], "why": "toy"})
+    spec["workloads"].append({"name": "toyfam.offline", "config": "toyfam",
+                              "traffic": "toy-offline", "chips": 1,
+                              "why": "toy"})
+    for m in spec["end_to_end"] + spec["per_layer"]:
+        if "toy.offline" in m.get("workloads", ()):
+            m["workloads"].append("toyfam.offline")
+    (root / "BENCHMARK.json").write_text(json.dumps(spec))
+
+
 def test_new_cell_of_new_files_runs_without_editing_any(tmp_path):
-    """``toy.offline`` and ``toy.poisson`` are only new files and new
-    entries: both run, and no file the benchmark already had changes."""
+    """``toy.offline``, ``toy.poisson`` and ``toyfam.offline`` (a model
+    family of its own) are only new files and new entries: each runs, the
+    new family's file is the one that builds, counts and judges its model,
+    and no file the benchmark already had changes."""
     before = _digest(REPO / "portbench")
     root = make_root(tmp_path)
+    _add_family_cell(root)
     shipped = {k: v for k, v in _digest(root / "portbench").items()
                if k in before}
     assert shipped == {k: before[k] for k in shipped}
@@ -34,8 +87,31 @@ def test_new_cell_of_new_files_runs_without_editing_any(tmp_path):
         run, out = run_cell(root, cell, seed=2 ** 31 + 3, seconds=seconds)
         assert out["correct"], (run.errors, out["checks"])
         assert run.attempted > 0
+        assert set(run.families) == {"qwen2"}
+    run, out = run_cell(root, "toyfam.offline", seed=2 ** 31 + 3,
+                        seconds=1.5, trace=True)
+    assert out["correct"], (run.errors, out["checks"])
+    assert set(run.families) == {"toyfam"}
+    calls = run.families["toyfam"].CALLS
+    # one model built, its layout read for the reference's weights, every
+    # request of every batch counted, the traced batch's kernel work, and
+    # the reference run once over the sample
+    assert calls["build"] == 1 and calls["layout"] == 1
+    assert calls["sequence_flops"] == sum(b["B"] for b in run.batches)
+    assert calls["kernel_work"] == 1 and calls["logits"] == 1
+    assert run.traced_work["decode"]
     assert {k: v for k, v in _digest(root / "portbench").items()
             if k in shipped} == shipped
+
+
+def test_an_unknown_model_type_names_the_file_it_looked_for(toy_root):
+    path = toy_root / "portbench/configs/toy.json"
+    path.write_text(json.dumps(dict(json.loads(path.read_text()),
+                                    model_type="nosuch")))
+    with pytest.raises(FileNotFoundError, match=r"portbench/arch/nosuch\.py"):
+        run_cell(toy_root, "toy.offline", seconds=0.5)
+    with pytest.raises(ValueError, match="model_type"):
+        harness.family(toy_root, "../qwen2")
 
 
 def test_result_line_keys_and_checks_last(toy_root):
@@ -172,7 +248,16 @@ def test_the_control_in_the_program_s_place_is_not_correct(toy_root, cell,
 CARD_TOY = {"hidden_size": 256, "intermediate_size": 512, "head_dim": 64,
             "num_attention_heads": 4, "num_key_value_heads": 2,
             "torch_dtype": "bfloat16"}
-CARD_LIMIT = 0.1          # toy gaps read ~1e-3 on the card, the control 0.16-0.23
+# the offline toy on the card generates 32 tokens a request (room for them
+# in its cache), so its sample of 4 requests judges 128 tokens: at 8 tokens
+# (32 judged) the control's widest gap read 0.150-0.641 over eight seeds and
+# is, at that count, a draw of too few near-ties to sit safely above a limit
+CARD_OFFLINE = {"new_tokens": 32}
+CARD_MAX_SEQ = 96
+# the offline toy on an H100 at 32 tokens, eight seeds: the program's widest
+# gap 0-0.0365, the fp8 control's 0.337-0.524; the limit sits 2.7x above the
+# one and 3.4x below the other
+CARD_LIMIT = 0.1
 
 
 @pytest.mark.gpu
@@ -186,6 +271,11 @@ def test_toy_cells_on_the_card(toy_root, cuda, cell, cfg_file):
     cfg = json.loads(path.read_text())
     for m in [cfg] + list(cfg.get("models", {}).values()):
         m.update(CARD_TOY)
+    if "serving" in cfg:
+        cfg["serving"]["max_seq"] = CARD_MAX_SEQ
+        mix = toy_root / "portbench/traffic/toy-offline.json"
+        mix.write_text(json.dumps(dict(json.loads(mix.read_text()),
+                                       **CARD_OFFLINE)))
     path.write_text(json.dumps(cfg))
     lim = toy_root / "portbench/limits" / f"{cell}.json"
     lim.write_text(json.dumps({k: CARD_LIMIT

@@ -10,7 +10,7 @@ import numpy as np
 import pytest
 
 from portbench import count, load
-from portbench.tests.conftest import TOY_MODEL, TOY_OFFLINE
+from portbench.tests.conftest import TOY_MODEL, TOY_OFFLINE, qwen2
 
 
 def test_lognormal_lengths_are_clipped_quantiles():
@@ -115,30 +115,32 @@ def test_flash_and_decode_work_count_each_pair_once():
 
 
 def test_sequence_flops_sum_the_steps():
-    cfg = TOY_MODEL
+    cfg, fam = TOY_MODEL, qwen2()
     p, n = 11, 5
     L, H, hd = cfg["num_hidden_layers"], 4, 16
-    dense = 2 * count.layer_matmul_params(cfg) * L
+    dense = 2 * fam._layer_matmul_params(cfg) * L
     want = dense * p + 4 * H * hd * L * p * (p + 1) // 2
     for j in range(1, n):
         want += dense + 4 * H * hd * L * (p + j)
     want += 2 * cfg["hidden_size"] * cfg["vocab_size"] * n
-    assert count.sequence_flops(cfg, p, n) == pytest.approx(want)
+    assert fam.sequence_flops(cfg, p, n) == pytest.approx(want)
 
 
 def test_layer_params_match_the_port_s_count():
-    from portbench import models
-    cfg = TOY_MODEL
-    total, _ = models.arch_config(cfg).param_count()
+    cfg, fam = TOY_MODEL, qwen2()
+    total, _ = fam._arch_config(cfg).param_count()
     d, V, L = cfg["hidden_size"], cfg["vocab_size"], cfg["num_hidden_layers"]
     bias = (4 + 2 * 2) * 16
     norms = 2 * L * d + d
-    assert count.layer_matmul_params(cfg) * L == total - 2 * V * d - norms \
+    assert fam._layer_matmul_params(cfg) * L == total - 2 * V * d - norms \
         - L * bias
 
 
 def test_batch_attention_calls():
-    flash, decode = count.batch_attention_calls(TOY_MODEL, 3, 10, 4)
+    work = qwen2().kernel_work(TOY_MODEL, 3, 10, 4)
+    assert set(work) == {"flash", "decode"}
+    flash, decode = work["flash"], work["decode"]
     assert len(flash) == 2 and len(decode) == 2 * 3
+    assert flash[0] == count.flash_work(3, 10, 4, 2, 16)
     assert decode[0] == count.decode_work(3, 11, 4, 2, 16)
     assert decode[-1] == count.decode_work(3, 13, 4, 2, 16)

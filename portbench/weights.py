@@ -1,4 +1,4 @@
-"""Seeded weights of a dense transformer, made on the device.
+"""Seeded weights of a model, made on the device.
 
 The weights are one stream of standard normals drawn in the served dtype
 from a ``torch.Generator`` on the device, in chunks of ``CHUNK`` values (a
@@ -8,9 +8,10 @@ seed on the same device gives the same bits, so the reference makes the
 weights again after the program's state is freed instead of reading
 anything the program holds.
 
-Names and shapes are the port's parameter layout (``wq [d, H, hd]``,
-``wo [H, hd, d]``, ``wg [d, f]`` ...); :func:`load_into` refuses a model
-whose parameters differ from it.
+Names, shapes and scales are the family's ``layout(cfg)``
+(``portbench/arch/<model_type>.py``): the port's parameter names and
+shapes, in stream order.  :func:`load_into` refuses a model whose
+parameters differ from it.
 """
 from __future__ import annotations
 
@@ -19,31 +20,14 @@ from typing import Dict, Iterator, List, Mapping, Tuple
 import torch
 
 CHUNK = 1 << 28
+DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+
+Layout = List[Tuple[str, Tuple[int, ...], float]]
 
 
-def layout(cfg: Mapping) -> List[Tuple[str, Tuple[int, ...], float]]:
-    """(name, shape, standard deviation) of every parameter, in stream
-    order.  Norm weights act as ``1 + w`` and, like the q/k/v biases, are
-    drawn small and non-zero, so the comparison reaches them."""
-    d, H, KV, hd = (cfg["hidden_size"], cfg["num_attention_heads"],
-                    cfg["num_key_value_heads"], cfg["head_dim"])
-    f, V = cfg["intermediate_size"], cfg["vocab_size"]
-    out = [("embed", (V, d), 0.02), ("final_norm", (d,), 0.1)]
-    if not cfg["tie_word_embeddings"]:
-        out.append(("lm_head", (d, V), d ** -0.5))
-    for i in range(cfg["num_hidden_layers"]):
-        p = f"blocks.{i}."
-        out += [(p + "attn_norm", (d,), 0.1),
-                (p + "wq", (d, H, hd), d ** -0.5),
-                (p + "wk", (d, KV, hd), d ** -0.5),
-                (p + "wv", (d, KV, hd), d ** -0.5),
-                (p + "wo", (H, hd, d), (H * hd) ** -0.5)]
-        if cfg["attention_bias"]:
-            out += [(p + "bq", (H, hd), 0.1), (p + "bk", (KV, hd), 0.1),
-                    (p + "bv", (KV, hd), 0.1)]
-        out += [(p + "mlp_norm", (d,), 0.1), (p + "wg", (d, f), d ** -0.5),
-                (p + "wu", (d, f), d ** -0.5), (p + "wd", (f, d), f ** -0.5)]
-    return out
+def served_dtype(cfg: Mapping) -> torch.dtype:
+    """The dtype the configuration is served in (its ``torch_dtype``)."""
+    return DTYPES[cfg["torch_dtype"]]
 
 
 class _Stream:
@@ -71,12 +55,12 @@ class _Stream:
         return parts[0] if len(parts) == 1 else torch.cat(parts)
 
 
-def stream(cfg: Mapping, seed: int, device, dtype: torch.dtype
+def stream(layout: Layout, seed: int, device, dtype: torch.dtype
            ) -> Iterator[Tuple[str, torch.Tensor]]:
-    """(name, weight) of every parameter in :func:`layout` order, each
-    weight a fresh tensor of the served dtype."""
+    """(name, weight) of every parameter in ``layout``'s order, each weight
+    a fresh tensor of the served dtype."""
     s = _Stream(seed, torch.device(device), dtype)
-    for name, shape, std in layout(cfg):
+    for name, shape, std in layout:
         n = 1
         for x in shape:
             n *= x
@@ -84,21 +68,21 @@ def stream(cfg: Mapping, seed: int, device, dtype: torch.dtype
 
 
 @torch.no_grad()
-def load_into(model: torch.nn.Module, cfg: Mapping, seed: int) -> None:
-    """Copy the seeded weights into ``model``'s parameters."""
+def load_into(model: torch.nn.Module, layout: Layout, seed: int) -> None:
+    """Copy the seeded weights of ``layout`` into ``model``'s parameters."""
     params = dict(model.named_parameters())
-    want = {name: shape for name, shape, _ in layout(cfg)}
+    want = {name: shape for name, shape, _ in layout}
     got = {name: tuple(p.shape) for name, p in params.items()}
     if got != want:
         raise ValueError(f"the model's parameters differ from the "
                          f"benchmark's layout: {sorted(set(got) ^ set(want))}"
                          f" or shapes")
-    dtype = next(iter(params.values())).dtype
-    for name, w in stream(cfg, seed, params["embed"].device, dtype):
+    first = params[layout[0][0]]
+    for name, w in stream(layout, seed, first.device, first.dtype):
         params[name].copy_(w)
 
 
-def all_weights(cfg: Mapping, seed: int, device, dtype: torch.dtype
+def all_weights(layout: Layout, seed: int, device, dtype: torch.dtype
                 ) -> Dict[str, torch.Tensor]:
     """Every weight, by name (the reference's copy, made anew)."""
-    return dict(stream(cfg, seed, device, dtype))
+    return dict(stream(layout, seed, device, dtype))
