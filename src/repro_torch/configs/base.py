@@ -5,12 +5,17 @@ package); ``tests/test_torch_models.py`` holds the two field by field.
 Every architecture is described by one :class:`ArchConfig` in its own
 module under ``repro_torch.configs``; CPU tests use ``reduced()`` variants
 of the same family, the card runs the full widths.
+
+:class:`GraniteHybridConfig` is the port's own (the JAX package has no
+such family): Granite-4.0-H's settings are its fields, and
+:class:`ArchConfig` holds their neutral values as class variables, so the
+ten configurations' fields stay the JAX package's.
 """
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass, field
-from typing import Optional, Tuple
+from typing import ClassVar, Optional, Tuple
 
 
 @dataclass(frozen=True)
@@ -77,6 +82,21 @@ class ArchConfig:
     frontend: str = "none"  # none | vision_stub | audio_stub
     # number of frontend embedding positions prepended for vlm/audio stubs
     source: str = ""  # citation string
+
+    # Settings that only GraniteHybridConfig makes fields; here their
+    # neutral values, which leave every other family's arithmetic as it is.
+    layer_types: ClassVar[Tuple[str, ...]] = ()
+    shared_ff: ClassVar[int] = 0     # 0: the shared expert is d_ff_expert wide
+    embedding_multiplier: ClassVar[float] = 1.0
+    attention_multiplier: ClassVar[float] = 0.0   # 0: 1/sqrt(head_dim)
+    residual_multiplier: ClassVar[float] = 1.0
+    logits_scaling: ClassVar[float] = 1.0
+    rope: ClassVar[bool] = True
+    conv_bias: ClassVar[bool] = False       # Mamba2's conv over x, B, C
+    # Mamba2's gated RMSNorm: 0 normalises each head's channels (the JAX
+    # package's), g > 0 each of g groups of the d_inner channels
+    gate_norm_groups: ClassVar[int] = 0
+    moe_dropless: ClassVar[bool] = False
 
     # ------------------------------------------------------------------
     def __post_init__(self):
@@ -211,3 +231,66 @@ class ArchConfig:
 
     def scaled(self, **overrides) -> "ArchConfig":
         return dataclasses.replace(self, **overrides)
+
+
+@dataclass(frozen=True)
+class GraniteHybridConfig(ArchConfig):
+    """IBM Granite-4.0-H (Hugging Face ``granitemoehybrid``), family
+    ``"hybrid_moe"``: each layer is a mixer, Mamba2 or grouped-query
+    attention as ``layer_types`` says, then an MoE block (top-k routed
+    experts, dropless, and a shared SwiGLU MLP ``shared_ff`` wide), each
+    branch added to the residual times ``residual_multiplier``.  The
+    embedding is scaled by ``embedding_multiplier``, attention scores by
+    ``attention_multiplier`` with no positional encoding, the logits
+    divided by ``logits_scaling``; the Mamba2 conv over x, B and C has a
+    bias and its gated RMSNorm runs over each of ``gate_norm_groups``
+    groups of the d_inner channels.  ``d_ff`` is unused (0): every
+    layer's MLP is its MoE block."""
+
+    layer_types: Tuple[str, ...] = ()
+    shared_ff: int = 0
+    embedding_multiplier: float = 1.0
+    attention_multiplier: float = 0.0
+    residual_multiplier: float = 1.0
+    logits_scaling: float = 1.0
+    conv_bias: bool = True
+    gate_norm_groups: int = 1
+    rope: ClassVar[bool] = False
+    moe_dropless: ClassVar[bool] = True
+
+    def __post_init__(self):
+        super().__post_init__()
+        if self.family != "hybrid_moe":
+            raise ValueError(f"{self.name}: GraniteHybridConfig is the "
+                             f"hybrid_moe family, not {self.family!r}")
+        if self.moe is None or self.ssm is None:
+            raise ValueError(f"{self.name}: hybrid_moe needs MoEConfig and "
+                             f"SSMConfig")
+        if len(self.layer_types) != self.num_layers or not set(
+                self.layer_types) <= {"mamba", "attention"}:
+            raise ValueError(f"{self.name}: layer_types must name mamba or "
+                             f"attention for each of {self.num_layers} layers")
+        if self.gate_norm_groups < 1 or \
+                self.ssm.d_inner(self.d_model) % self.gate_norm_groups:
+            raise ValueError(f"{self.name}: gate_norm_groups must divide "
+                             f"d_inner")
+
+    def param_count(self) -> Tuple[int, int]:
+        """(total, active): the embedding (tied or not), the final norm, and
+        each layer's mixer with its norm, then its MoE block (norm,
+        router, experts, shared MLP, ``shared_ff`` wide) and, with
+        ``conv_bias``, the conv's biases."""
+        d, m, s = self.d_model, self.moe, self.ssm
+        emb = self.vocab_size * d * (1 if self.tie_embeddings else 2)
+        expert = 3 * d * m.d_ff_expert
+        shared = 3 * d * (self.shared_ff or m.d_ff_expert)
+        moe_fixed = d + d * m.num_experts + shared
+        bias = (s.d_inner(d) + 2 * s.d_state) if self.conv_bias else 0
+        total = active = emb + d
+        for kind in self.layer_types:
+            mixer = (self.ssm_params_per_layer() + bias if kind == "mamba"
+                     else self.attn_params() + d)
+            total += mixer + moe_fixed + m.num_experts * expert
+            active += mixer + moe_fixed + m.experts_per_token * expert
+        return total, active
+

@@ -10,6 +10,9 @@ has no use for the stack):
 * hybrid              : ``{"k": [G x [B,S,KV,hd]], "v": [...],
   "ssm": [L x SSMLayerState]}`` with G the number of shared-attention
   applications, each keeping its own KV cache (per Zamba2).
+* hybrid_moe          : ``{"k": [A x ...], "v": [...], "ssm": [M x
+  SSMLayerState]}``, A and M the attention and Mamba2 layers of
+  ``layer_types``, each list in layer order.
 
 ``cache_len`` travels separately as a host int.  Under a sharding
 policy with a mesh the KV caches are DTensors pinned
@@ -31,11 +34,22 @@ Cache = Dict[str, List]
 
 def num_attn_applications(arch: ArchConfig) -> int:
     """How many attention layers need a KV cache."""
+    if arch.family == "hybrid_moe":
+        return arch.layer_types.count("attention")
     if arch.family == "ssm":
         return 0
     if arch.family == "hybrid":
         ae = arch.hybrid.attn_every
         return -(-arch.num_layers // ae)  # ceil
+    return arch.num_layers
+
+
+def num_ssm_layers(arch: ArchConfig) -> int:
+    """How many layers keep a Mamba2 state."""
+    if arch.ssm is None:
+        return 0
+    if arch.family == "hybrid_moe":
+        return arch.layer_types.count("mamba")
     return arch.num_layers
 
 
@@ -89,7 +103,7 @@ def init_cache(arch: ArchConfig, batch: int, max_seq: int,
     cache = init_kv(arch, batch, max_seq, dtype, device, policy)
     if arch.ssm is not None:
         cache["ssm"] = [ssm_mod.init_layer_state(arch, batch, dtype, device)
-                        for _ in range(arch.num_layers)]
+                        for _ in range(num_ssm_layers(arch))]
     return cache
 
 
@@ -118,7 +132,8 @@ def cache_bytes(arch: ArchConfig, batch: int, max_seq: int,
     if arch.ssm is not None:
         s = arch.ssm
         nh, hd = s.num_heads(arch.d_model), s.head_dim
-        total += arch.num_layers * batch * nh * hd * s.d_state * 4  # fp32
-        total += arch.num_layers * batch * (s.conv_width - 1) * (
+        n = num_ssm_layers(arch)
+        total += n * batch * nh * hd * s.d_state * 4  # fp32
+        total += n * batch * (s.conv_width - 1) * (
             nh * hd + 2 * s.d_state) * dtype_bytes
     return total

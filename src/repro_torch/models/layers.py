@@ -137,13 +137,17 @@ def gated_mlp(x: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor,
     u = linear(x, wu)
     if pin is not None:
         g = pin(g)
-    if activation == "silu":
-        g = F.silu(g)
-    elif activation == "gelu":
-        g = F.gelu(g, approximate="tanh")
-    else:
-        raise ValueError(f"unknown activation {activation!r}")
+    g = activate(g, activation)     # rebound: the product's input is freed
     return linear(g * u, wd)
+
+
+def activate(g: torch.Tensor, activation: str) -> torch.Tensor:
+    """The gate's activation of a gated MLP: SiLU, or GeGLU's tanh gelu."""
+    if activation == "silu":
+        return F.silu(g)
+    if activation == "gelu":
+        return F.gelu(g, approximate="tanh")
+    raise ValueError(f"unknown activation {activation!r}")
 
 
 def heads_whole(policy, w: torch.Tensor, heads: str,

@@ -17,11 +17,25 @@ positions take precomputed embeddings.  A hybrid runs one shared attention
 block (``shared_attn``) before each group of ``attn_every`` Mamba2 layers,
 with one KV cache per application.  An MoE model runs groups of
 ``moe_every`` layers: ``moe_every - 1`` dense layers, then one MoE layer
-(``models.moe``), each with its own KV cache.
+(``models.moe``), each with its own KV cache.  The ``hybrid_moe`` family
+(the port's own, ``configs.base.GraniteHybridConfig``: IBM Granite-4.0-H)
+runs each layer's mixer, a Mamba2 (``HybridMambaBlock``) or a NoPE
+attention (``moe.MoEBlock``'s) as ``layer_types`` says, then the layer's
+dropless MoE block, each branch added to the residual times
+``residual_multiplier``; its embedding and logits carry Granite's
+multipliers.  Its cache holds one KV pair an attention layer and one
+state a Mamba2 layer.
 
 Parameters are made frozen; ``model.requires_grad_(True)`` makes them
 trainable (``training.train_step`` does).  The serving entry points run
 under ``torch.no_grad()``, so their outputs never carry a graph.
+
+``tracer`` (an ``obs.Tracer``, which ``serving.Engine`` hands over) makes
+the Mamba2 layers record an ``ssm.scan`` span at prefill and an
+``ssm.step`` span at decode (arg ``layer``), and the ``hybrid_moe``
+family's MoE calls a ``moe.experts`` span (args ``layer``, ``route``,
+``rows``: the routed (token, expert) pairs); host time around the
+enqueue, no synchronisation.  Without one nothing is recorded.
 
 ``policy`` (a ``sharding.policy.ShardingPolicy``) pins activations by
 logical axis at the reference's places; ``None`` or a policy without a
@@ -55,6 +69,8 @@ NUM_FRONTEND_POSITIONS = 64
 LOSS_IGNORE = -1
 DENSE_FAMILIES = ("dense", "vlm", "audio")
 FAMILIES = DENSE_FAMILIES + ("moe", "ssm", "hybrid")
+# families of the port alone (the JAX package has none of them)
+PORT_FAMILIES = ("hybrid_moe",)
 IMPLS = ("kernel", "plain")
 REMATS = ("none", "full", "dots")
 # "dots" keeps what jax.checkpoint_policies.dots_with_no_batch_dims_saveable
@@ -66,6 +82,22 @@ _DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
 def _dots_saveable(ctx, op, *args, **kwargs) -> ckpt.CheckpointPolicy:
     return (ckpt.CheckpointPolicy.MUST_SAVE if op in _DOTS
             else ckpt.CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+class HybridMambaBlock(ssm_mod.SSMBlock):
+    """A ``hybrid_moe`` Mamba2 layer: ``SSMBlock``'s parameters, then the
+    MoE block's (``moe.moe_shapes``)."""
+
+    def __init__(self, arch: ArchConfig, device: torch.device,
+                 dtype: torch.dtype):
+        super().__init__(arch, device, dtype)
+        tfm.register_empty(self, moe_mod.moe_shapes(arch), device, dtype)
+
+
+def _hybrid_scale(arch: ArchConfig, name: str) -> float:
+    if name in moe_mod.moe_shapes(arch):
+        return moe_mod.init_scale(arch, name)
+    return ssm_mod.init_scale(arch, name)
 
 
 def resolve_device(device: Union[str, torch.device]) -> torch.device:
@@ -103,7 +135,7 @@ class Model(nn.Module):
                  remat: str = "none",
                  policy: Optional[ShardingPolicy] = None):
         super().__init__()
-        if arch.family not in FAMILIES:
+        if arch.family not in FAMILIES + PORT_FAMILIES:
             raise ValueError(f"{arch.name}: unknown family {arch.family!r}")
         if impl not in IMPLS:
             raise ValueError(f"impl {impl!r} not in {IMPLS}")
@@ -119,7 +151,11 @@ class Model(nn.Module):
         self.moe_dispatch = moe_dispatch
         self.remat = remat
         self.policy = policy if policy is not None else NULL_POLICY
+        self.tracer = None
         mesh = self.policy.mesh
+        if mesh is not None and arch.family in PORT_FAMILIES:
+            raise NotImplementedError(f"{arch.name}: the {arch.family} "
+                                      f"family runs on one device")
         if (mesh is not None and self.device.type != "meta"
                 and mesh.device_type != self.device.type):
             raise ValueError(f"{arch.name}: the policy's mesh is on "
@@ -143,6 +179,9 @@ class Model(nn.Module):
     def _layer_kinds(self) -> list:
         """The block class of each layer, in layer order."""
         arch = self.arch
+        if arch.family == "hybrid_moe":
+            return [HybridMambaBlock if t == "mamba" else moe_mod.MoEBlock
+                    for t in arch.layer_types]
         if arch.family == "moe":
             n_groups, dense_per = self.moe_group
             return ([tfm.DenseBlock] * dense_per + [moe_mod.MoEBlock]) \
@@ -267,7 +306,8 @@ class Model(nn.Module):
             normal(self.lm_head, arch.d_model ** -0.5)
         scales = {tfm.DenseBlock: tfm.init_scale,
                   moe_mod.MoEBlock: moe_mod.init_scale,
-                  ssm_mod.SSMBlock: ssm_mod.init_scale}
+                  ssm_mod.SSMBlock: ssm_mod.init_scale,
+                  HybridMambaBlock: _hybrid_scale}
         for blk in self.blocks:
             scale = scales[type(blk)]
             for name, param in blk.named_parameters():
@@ -276,7 +316,7 @@ class Model(nn.Module):
                         normal(expert, scale(arch, name))
                 else:
                     normal(param, scale(arch, name))
-            if arch.ssm is not None:
+            if isinstance(blk, ssm_mod.SSMBlock):
                 blk.init_constants()
         if arch.family == "hybrid":
             for name, param in self.shared_attn.named_parameters():
@@ -302,9 +342,16 @@ class Model(nn.Module):
             return tokens
         return pol.pin(tokens, "batch", None)
 
+    def _embed(self, tokens: torch.Tensor) -> torch.Tensor:
+        """The tokens' rows of the table, times the arch's embedding
+        multiplier where it has one."""
+        h = layers.embed(self._token_rows(tokens), self.embed).to(self.dtype)
+        m = self.arch.embedding_multiplier
+        return h if m == 1.0 else h * m
+
     def embed_inputs(self, tokens: torch.Tensor,
                      frontend_embeds: Optional[torch.Tensor]) -> torch.Tensor:
-        h = layers.embed(self._token_rows(tokens), self.embed).to(self.dtype)
+        h = self._embed(tokens)
         if frontend_embeds is not None:
             h = self.policy.pin(h, "batch", "seq", None)
             P = frontend_embeds.shape[1]
@@ -315,8 +362,27 @@ class Model(nn.Module):
         h = layers.rms_norm(h, self.final_norm, self.arch.norm_eps)
         table = (layers.grad_placed(self.embed).T if self.arch.tie_embeddings
                  else self.lm_head)
-        return self.policy.pin(layers.logits(h, table),
-                               "batch", "seq", "vocab")
+        out = layers.logits(h, table)
+        if self.arch.logits_scaling != 1.0:
+            out = out / self.arch.logits_scaling
+        return self.policy.pin(out, "batch", "seq", "vocab")
+
+    def _span(self, name: str, **args):
+        """A span of the model's tracer (module docstring), or nothing."""
+        if self.tracer is None:
+            return contextlib.nullcontext()
+        return self.tracer.span(name, "model", **args)
+
+    def _moe(self, h: torch.Tensor, blk, i: int) -> torch.Tensor:
+        """Layer ``i``'s MoE block on h [B, S, d] (the ``hybrid_moe``
+        family)."""
+        arch = self.arch
+        if self.tracer is None:
+            return moe_mod.moe_mlp(h, blk, arch, self.moe_dispatch, layer=i)
+        route = moe_mod.route_of(arch, self.moe_dispatch, self.policy)
+        rows = h.shape[0] * h.shape[1] * arch.moe.experts_per_token
+        with self._span("moe.experts", layer=i, route=route, rows=rows):
+            return moe_mod.moe_mlp(h, blk, arch, self.moe_dispatch, layer=i)
 
     def _positions(self, B: int, S: int) -> torch.Tensor:
         return torch.arange(S, dtype=torch.int32,
@@ -334,16 +400,21 @@ class Model(nn.Module):
 
     # ------------------------------------------------------------------
     def _body_full(self, h: torch.Tensor, kv_seq: Optional[int] = None,
-                   want_cache: bool = True
+                   want_cache: bool = True,
+                   into: Optional[kvcache.Cache] = None
                    ) -> Tuple[torch.Tensor, kvcache.Cache]:
         """Every block over the whole sequence; returns (h, cache).  With
         ``kv_seq`` the KV caches are zero-padded to ``kv_seq`` positions,
         without it they hold S; SSM states are per sequence, never padded.
-        ``want_cache=False`` keeps nothing (the cache comes back empty)."""
+        ``want_cache=False`` keeps nothing (the cache comes back empty).
+        ``into`` (a cache of this batch's rows, KV of at least S positions)
+        takes the KV prefix and the states in place and is returned."""
         arch, pol = self.arch, self.policy
         B, S = h.shape[:2]
         positions = self._positions(B, S)
-        if kv_seq is not None:
+        if into is not None:
+            cache = into
+        elif kv_seq is not None:
             # the reference pads the prefill's K/V to max_seq, then the
             # decode steps pin the cache on cache_seq: the port allocates
             # the cache on those placements and writes the prefix into it
@@ -353,8 +424,23 @@ class Model(nn.Module):
             cache = {"k": [], "v": []}
         else:
             cache = {}
-        if arch.ssm is not None:
+        if arch.ssm is not None and into is None:
             cache["ssm"] = []
+
+        def keep_state(j, state):
+            if into is not None:
+                for dst, src in zip(cache["ssm"][j], state):
+                    dst.copy_(src)
+            elif want_cache:
+                cache["ssm"].append(state)
+
+        def keep(i, k, v):
+            if kv_seq is not None or into is not None:
+                kvcache.write_prefix(cache["k"][i], k)
+                kvcache.write_prefix(cache["v"][i], v)
+            elif want_cache:
+                cache["k"].append(k)
+                cache["v"].append(v)
 
         def attend(h, blk, i):
             if isinstance(blk, moe_mod.MoEBlock):
@@ -364,23 +450,39 @@ class Model(nn.Module):
             else:
                 h, (k, v) = self._block(tfm.dense_block_full, h, blk, arch,
                                         positions, self.impl, pol)
-            if kv_seq is not None:
-                kvcache.write_prefix(cache["k"][i], k)
-                kvcache.write_prefix(cache["v"][i], v)
-            elif want_cache:
-                cache["k"].append(k)
-                cache["v"].append(v)
+            keep(i, k, v)
             return h
 
         def mamba(h, lo, hi):
-            for blk in self.blocks[lo:hi]:
-                h, state = self._block(ssm_mod.ssm_block_full, h, blk,
-                                       arch, None, self.impl, pol)
-                if want_cache:
-                    cache["ssm"].append(state)
+            for i in range(lo, hi):
+                with self._span("ssm.scan", layer=i):
+                    h, state = self._block(ssm_mod.ssm_block_full, h,
+                                           self.blocks[i], arch, None,
+                                           self.impl, pol)
+                keep_state(i, state)
             return h
 
-        if arch.family == "ssm":
+        def hybrid_moe(h):
+            m, a, j = arch.residual_multiplier, 0, 0
+            for i, blk in enumerate(self.blocks):
+                if isinstance(blk, ssm_mod.SSMBlock):
+                    with self._span("ssm.scan", layer=i):
+                        out, state = ssm_mod.ssm_mixer_full(
+                            h, blk, arch, None, self.impl)
+                    keep_state(j, state)
+                    j += 1
+                else:
+                    out, (k, v) = tfm.attention_full(h, blk, arch, positions,
+                                                     self.impl)
+                    keep(a, k, v)
+                    a += 1
+                h = h + out * m
+                h = h + self._moe(h, blk, i) * m
+            return h
+
+        if arch.family == "hybrid_moe":
+            h = hybrid_moe(h)
+        elif arch.family == "ssm":
             h = mamba(h, 0, arch.num_layers)
         elif arch.family == "hybrid":
             for g, (lo, hi) in enumerate(self.hybrid_groups):
@@ -423,17 +525,21 @@ class Model(nn.Module):
     @torch.no_grad()
     def prefill(self, tokens: torch.Tensor,
                 frontend_embeds: Optional[torch.Tensor] = None,
-                max_seq: Optional[int] = None
+                max_seq: Optional[int] = None,
+                into: Optional[kvcache.Cache] = None
                 ) -> Tuple[torch.Tensor, kvcache.Cache]:
         """Forward + cache build.  Returns (last-token logits [B,1,V],
         cache).  With ``max_seq`` the KV caches are zero-padded to
         ``max_seq`` positions, ready for ``decode_step``; without it they
-        hold S."""
+        hold S.  With ``into`` (caches of this batch's rows, such as
+        ``GraphedDecode.rows``) the KV prefix and the states are written
+        into it in place, and it is the cache returned."""
         S = tokens.shape[1]
         with self.on_mesh():
             h = self.embed_inputs(tokens, frontend_embeds)
             pad = max_seq is not None and max_seq > S
-            h, cache = self._body_full(h, max_seq if pad else None)
+            h, cache = self._body_full(h, max_seq if pad else None,
+                                       into=into)
             return self.head(h[:, -1:]), cache
 
     @torch.no_grad()
@@ -450,8 +556,7 @@ class Model(nn.Module):
     def _decode(self, cache: kvcache.Cache, cache_len: int,
                 tokens: torch.Tensor) -> Tuple[torch.Tensor, kvcache.Cache]:
         arch, pol = self.arch, self.policy
-        h = layers.embed(self._token_rows(tokens), self.embed).to(self.dtype)
-        h = pol.pin(h, "batch", None, None)
+        h = pol.pin(self._embed(tokens), "batch", None, None)
 
         def attend(h, blk, i):
             if isinstance(blk, moe_mod.MoEBlock):
@@ -464,11 +569,31 @@ class Model(nn.Module):
 
         def mamba(h, lo, hi):
             for i in range(lo, hi):
-                h, cache["ssm"][i] = ssm_mod.ssm_block_decode(
-                    h, self.blocks[i], arch, cache["ssm"][i], pol)
+                with self._span("ssm.step", layer=i):
+                    h, cache["ssm"][i] = ssm_mod.ssm_block_decode(
+                        h, self.blocks[i], arch, cache["ssm"][i], pol)
             return h
 
-        if arch.family == "ssm":
+        def hybrid_moe(h):
+            m, a, j = arch.residual_multiplier, 0, 0
+            for i, blk in enumerate(self.blocks):
+                if isinstance(blk, ssm_mod.SSMBlock):
+                    with self._span("ssm.step", layer=i):
+                        out, cache["ssm"][j] = ssm_mod.ssm_mixer_decode(
+                            h, blk, arch, cache["ssm"][j])
+                    j += 1
+                else:
+                    out = tfm.attention_decode(h, blk, arch, cache["k"][a],
+                                               cache["v"][a], cache_len,
+                                               self.impl)
+                    a += 1
+                h = h + out * m
+                h = h + self._moe(h, blk, i) * m
+            return h
+
+        if arch.family == "hybrid_moe":
+            h = hybrid_moe(h)
+        elif arch.family == "ssm":
             h = mamba(h, 0, arch.num_layers)
         elif arch.family == "hybrid":
             for g, (lo, hi) in enumerate(self.hybrid_groups):

@@ -1,4 +1,5 @@
-"""Mixture-of-experts layer (llama4-style: top-k routed + shared expert).
+"""Mixture-of-experts layer (llama4-style: top-k routed + shared expert),
+with a capacity dispatch and a dropless one.
 
 PyTorch counterpart of ``repro.models.moe``, computing what it computes:
 dispatch is the sort-free *rank-in-expert* scatter into capacity buffers.
@@ -29,6 +30,26 @@ The expert products are plain batched matrix products (``torch.matmul`` on
 ``[E, rows, d]`` stacks), as the reference computes them with einsums
 outside any Pallas kernel.  The block's attention is the dense one,
 through ``transformer.attention_full`` / ``attention_decode``.
+
+``"dropless"`` dispatch (``"auto"`` where ``arch.moe_dropless``: the port's
+``hybrid_moe`` family, Granite-4.0-H) drops no row and computes no empty
+slot: the (token, k) pairs are sorted by expert (a stable sort on the
+device), each expert's row range is found by ``searchsorted`` over the
+sorted ids, and one grouped product a weight (``torch._grouped_mm`` with
+the ranges' ends as device offsets: variable-sized groups, bf16 on the
+card) runs every expert over its own rows; the rows go back to (token, k)
+order, are scaled by their gates and summed over k, in the capacity
+path's order.  Nothing is read back to the host, so a decode step stays
+free of synchronisation.  Calls of more than ``DROPLESS_TOKENS`` tokens
+(a long prefill) run in chunks of that many tokens, which bounds the
+gathered rows' memory.  With a capacity that drops nothing (``cf >=
+E/K``) the two dispatches compute the same rows.
+
+``moe_routes`` tallies the calls of :func:`moe_mlp` by route
+(``dropless``, ``capacity``) on the host; ``expert_rows`` keeps, by
+layer, a device tally of the rows routed to each expert by the dropless
+route (one add a call, from the counts its sort made), read after a run,
+never inside a step.
 """
 from __future__ import annotations
 
@@ -44,8 +65,18 @@ from repro_torch.models import transformer as tfm
 from repro_torch.sharding.policy import (NULL_POLICY, PartitionSpec,
                                          ShardingPolicy)
 
-DISPATCHES = ("auto", "grouped", "global")
+DISPATCHES = ("auto", "grouped", "global", "dropless")
 EXPERT_WEIGHTS = ("we_g", "we_u", "we_d")   # [E, ...]: drawn one at a time
+DROPLESS_TOKENS = 8192       # tokens of one dropless call's grouped products
+
+moe_routes = {"dropless": 0, "capacity": 0}
+# layer (None where the caller names none) -> int64 rows per expert
+expert_rows: Dict[Optional[int], torch.Tensor] = {}
+
+
+def shared_width(arch: ArchConfig) -> int:
+    """The shared expert's width: ``arch.shared_ff``, else an expert's."""
+    return arch.shared_ff or arch.moe.d_ff_expert
 
 
 def capacity(arch: ArchConfig, n_tokens: int) -> int:
@@ -65,7 +96,8 @@ def moe_shapes(arch: ArchConfig) -> Dict[str, Tuple[int, ...]]:
     shapes = {"moe_norm": (d,), "router": (d, E), "we_g": (E, d, fe),
               "we_u": (E, d, fe), "we_d": (E, fe, d)}
     if m.shared_expert:
-        shapes.update(ws_g=(d, fe), ws_u=(d, fe), ws_d=(fe, d))
+        fs = shared_width(arch)
+        shapes.update(ws_g=(d, fs), ws_u=(d, fs), ws_d=(fs, d))
     return shapes
 
 
@@ -95,14 +127,14 @@ def init_scale(arch: ArchConfig, name: str) -> float:
     d, fe = arch.d_model, arch.moe.d_ff_expert
     return {"router": d ** -0.5, "we_g": d ** -0.5, "we_u": d ** -0.5,
             "we_d": fe ** -0.5, "ws_g": d ** -0.5, "ws_u": d ** -0.5,
-            "ws_d": fe ** -0.5}.get(name, 0.0)
+            "ws_d": shared_width(arch) ** -0.5}.get(name, 0.0)
 
 
 class MoEBlock(nn.Module):
     """One MoE layer's parameters: attention under ``DenseBlock``'s names,
     then ``moe_norm``, ``router [d,E]``, ``we_g/we_u [E,d,fe]``,
-    ``we_d [E,fe,d]`` and, with a shared expert, ``ws_g/ws_u [d,fe]``,
-    ``ws_d [fe,d]``."""
+    ``we_d [E,fe,d]`` and, with a shared expert, ``ws_g/ws_u [d,fs]``,
+    ``ws_d [fs,d]`` (``fs``: :func:`shared_width`)."""
 
     def __init__(self, arch: ArchConfig, device: torch.device,
                  dtype: torch.dtype):
@@ -249,6 +281,42 @@ def _dispatch_global(x: torch.Tensor, blk: MoEBlock, arch: ArchConfig,
                              grouped=False)[0]
 
 
+def _dropless_chunk(x: torch.Tensor, blk, arch: ArchConfig,
+                    layer: Optional[int]) -> torch.Tensor:
+    """Dropless dispatch of x [N, d] -> [N, d] (module docstring)."""
+    m = arch.moe
+    N, d = x.shape
+    E, K = m.num_experts, m.experts_per_token
+    gate, idx, _ = _route(x, blk, arch)                     # [N, K]
+    # (token, k) ids by expert; index_select, not indexing with a tensor:
+    # eager decode is bound by the host, and indexing took 145 us of host
+    # time a call on the H100 machine's host
+    experts, order = torch.sort(idx.reshape(N * K), stable=True)
+    ends = torch.searchsorted(experts, torch.arange(E, device=x.device),
+                              right=True, out_int32=True)   # [E] row ends
+    counts = torch.diff(ends, prepend=ends.new_zeros(1))
+    if layer in expert_rows:
+        expert_rows[layer] += counts
+    else:
+        expert_rows[layer] = counts.to(torch.int64)
+    rows = x.index_select(0, order // K)                    # [N*K, d] sorted
+    g = torch._grouped_mm(rows, blk.we_g, offs=ends)
+    g = layers.activate(g, arch.mlp_activation)
+    g = g * torch._grouped_mm(rows, blk.we_u, offs=ends)
+    y = torch._grouped_mm(g, blk.we_d, offs=ends)
+    y = y * gate.reshape(N * K).index_select(0, order).to(y.dtype)[:, None]
+    return torch.empty_like(y).index_copy_(0, order, y).view(N, K, d).sum(1)
+
+
+def _dropless(x: torch.Tensor, blk, arch: ArchConfig,
+              layer: Optional[int] = None) -> torch.Tensor:
+    """x [N, d] -> [N, d], in chunks of ``DROPLESS_TOKENS`` tokens."""
+    if x.shape[0] <= DROPLESS_TOKENS:
+        return _dropless_chunk(x, blk, arch, layer)
+    return torch.cat([_dropless_chunk(c, blk, arch, layer)
+                      for c in x.split(DROPLESS_TOKENS)])
+
+
 def _shared_expert(hn: torch.Tensor, blk: MoEBlock, arch: ArchConfig,
                    policy: ShardingPolicy = NULL_POLICY) -> torch.Tensor:
     """The shared expert on the normed input."""
@@ -257,20 +325,39 @@ def _shared_expert(hn: torch.Tensor, blk: MoEBlock, arch: ArchConfig,
         pin=lambda g: policy.pin(g, "batch", "seq", "ff"))
 
 
+def route_of(arch: ArchConfig, dispatch: str,
+             policy: Optional[ShardingPolicy] = None) -> str:
+    """The dispatch :func:`moe_mlp` runs for ``dispatch``: ``"auto"`` is
+    ``"dropless"`` where ``arch.moe_dropless``, else ``"global"`` when the
+    policy shards the sequence and ``"grouped"`` otherwise."""
+    if dispatch != "auto":
+        return dispatch
+    if arch.moe_dropless:
+        return "dropless"
+    return "global" if (policy or NULL_POLICY).rules.get("seq") else "grouped"
+
+
 def moe_mlp(h: torch.Tensor, blk: MoEBlock, arch: ArchConfig,
             dispatch: str = "grouped",
             routes: Optional[List[Routes]] = None,
-            policy: Optional[ShardingPolicy] = None) -> torch.Tensor:
+            policy: Optional[ShardingPolicy] = None,
+            layer: Optional[int] = None) -> torch.Tensor:
     """[B, S, d] -> [B, S, d]: top-k routed experts (+ the shared expert)
     on ``rms_norm(h, moe_norm)``.  ``routes``, when given, receives this
-    layer's :class:`Routes` (device tensors; nothing is synchronised;
-    not under a mesh)."""
+    layer's capacity dispatch's :class:`Routes` (device tensors; nothing
+    is synchronised; not under a mesh).  ``layer`` keys the dropless
+    route's ``expert_rows``."""
     policy = policy or NULL_POLICY
     B, S, d = h.shape
     hn = layers.rms_norm(h, blk.moe_norm, arch.norm_eps)
-    if dispatch == "auto":
-        dispatch = "global" if policy.rules.get("seq") else "grouped"
-    if dispatch == "global" or B == 1:
+    dispatch = route_of(arch, dispatch, policy)
+    moe_routes["dropless" if dispatch == "dropless" else "capacity"] += 1
+    if dispatch == "dropless":
+        if policy.mesh is not None:
+            raise NotImplementedError("the dropless dispatch runs on one "
+                                      "device")
+        y = _dropless(hn.reshape(B * S, d), blk, arch, layer).view(B, S, d)
+    elif dispatch == "global" or B == 1:
         # one group in the reference's batch-major token order (capacity
         # ranks run over it): the dispatch replicates its rows anyway, so
         # they are gathered before the flatten, not after; the result is

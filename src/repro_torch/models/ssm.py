@@ -9,6 +9,13 @@ CUDA tensor, its plain dual form on a CPU one) or, with ``impl="plain"``,
 the plain version directly.  Decode keeps the recurrent state
 (SSD state ``[B, nh, hd, ds]`` in fp32 plus the conv tails) and steps it
 in plain PyTorch: the JAX package has no kernel for that step either.
+
+Granite-4.0-H's Mamba2 (``arch.conv_bias``, ``arch.gate_norm_groups``; the
+port's own ``hybrid_moe`` family) adds a bias to the conv over x, B and C
+(``conv_x_bias``, ``conv_B_bias``, ``conv_C_bias``) and normalises the
+gated output over groups of its d_inner channels instead of each head's.
+:func:`ssm_mixer_full` and :func:`ssm_mixer_decode` give the mixer's
+output without the residual, for blocks that scale it.
 """
 from __future__ import annotations
 
@@ -43,11 +50,15 @@ def block_shapes(arch: ArchConfig) -> Dict[str, Tuple[int, ...]]:
     leading layer dim)."""
     s, d = arch.ssm, arch.d_model
     nh, hd, ds, cw = s.num_heads(d), s.head_dim, s.d_state, s.conv_width
-    return {"ssm_norm": (d,), "wz": (d, nh, hd), "wx": (d, nh, hd),
-            "wB": (d, ds), "wC": (d, ds), "wdt": (d, nh),
-            "conv_x": (cw, nh, hd), "conv_B": (cw, ds), "conv_C": (cw, ds),
-            "A_log": (nh,), "dt_bias": (nh,), "D": (nh,),
-            "gate_norm": (nh, hd), "wo": (nh, hd, d)}
+    shapes = {"ssm_norm": (d,), "wz": (d, nh, hd), "wx": (d, nh, hd),
+              "wB": (d, ds), "wC": (d, ds), "wdt": (d, nh),
+              "conv_x": (cw, nh, hd), "conv_B": (cw, ds), "conv_C": (cw, ds),
+              "A_log": (nh,), "dt_bias": (nh,), "D": (nh,),
+              "gate_norm": (nh, hd), "wo": (nh, hd, d)}
+    if arch.conv_bias:
+        shapes.update(conv_x_bias=(nh, hd), conv_B_bias=(ds,),
+                      conv_C_bias=(ds,))
+    return shapes
 
 
 def ssm_specs(arch: ArchConfig, policy: ShardingPolicy
@@ -55,7 +66,7 @@ def ssm_specs(arch: ArchConfig, policy: ShardingPolicy
     """Specs of one Mamba2 layer's parameters: the reference's
     ``ssm_specs`` without its leading ``"layers"`` entry."""
     sp = policy.spec
-    return {
+    specs = {
         "ssm_norm": sp(None),
         "wz": sp("embed", "ssm_heads", "ssm_pdim"),
         "wx": sp("embed", "ssm_heads", "ssm_pdim"),
@@ -71,6 +82,10 @@ def ssm_specs(arch: ArchConfig, policy: ShardingPolicy
         "gate_norm": sp("ssm_heads", "ssm_pdim"),
         "wo": sp("ssm_heads", "ssm_pdim", "embed"),
     }
+    if arch.conv_bias:
+        specs.update(conv_x_bias=sp("ssm_heads", "ssm_pdim"),
+                     conv_B_bias=sp(None), conv_C_bias=sp(None))
+    return specs
 
 
 def state_specs(policy: ShardingPolicy) -> "SSMLayerState":
@@ -260,9 +275,17 @@ def _gated_out(y: torch.Tensor, z: torch.Tensor, p: SSMBlock,
                arch: ArchConfig,
                policy: ShardingPolicy = NULL_POLICY) -> torch.Tensor:
     """Gated RMSNorm (scaled by ``1 + gate_norm``) and the out-projection.
-    y (fp32), z: [B, S, nh, hd] -> [B, S, d]."""
+    y (fp32), z: [B, S, nh, hd] -> [B, S, d].  The norm runs over each
+    head's hd channels, or with ``arch.gate_norm_groups`` over each group
+    of the nh * hd channels."""
     y = y * F.silu(layers.upcast(z))
-    y = y * torch.rsqrt(y.square().mean(-1, keepdim=True) + arch.norm_eps)
+    if arch.gate_norm_groups:
+        g = y.unflatten(-2, (arch.gate_norm_groups, -1)).flatten(-2)
+        g = g * torch.rsqrt(g.square().mean(-1, keepdim=True)
+                            + arch.norm_eps)
+        y = g.unflatten(-1, (-1, y.shape[-1])).flatten(-3, -2)
+    else:
+        y = y * torch.rsqrt(y.square().mean(-1, keepdim=True) + arch.norm_eps)
     y = (y * (1.0 + p.gate_norm.to(y.dtype))).to(z.dtype)
     y = policy.pin(y, "batch", "seq", "ssm_heads", "ssm_pdim")
     if is_dtensor(y) and any(q.is_shard(3) for q in y.placements):
@@ -304,14 +327,24 @@ def _project(hn: torch.Tensor, p: SSMBlock, arch: ArchConfig,
     return z, x, layers.linear(hn, p.wB), layers.linear(hn, p.wC), dt
 
 
-def _conv(v: torch.Tensor, w: torch.Tensor, cw: int
+def _conv(v: torch.Tensor, w: torch.Tensor, cw: int,
+          bias: Optional[torch.Tensor] = None
           ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """SiLU of the causal conv and the ``cw - 1`` rows decode starts from
-    (pre-activation conv inputs, left-padded with zeros when S < cw - 1)."""
+    """SiLU of the causal conv (plus ``bias``, where the arch has one) and
+    the ``cw - 1`` rows decode starts from (pre-activation conv inputs,
+    left-padded with zeros when S < cw - 1)."""
     if is_dtensor(v):
         out, tail = conv_and_tail(v, w)
-        return F.silu(out), tail
-    return F.silu(causal_shift_conv(v, w)), _tail(v, cw - 1)
+    else:
+        out, tail = causal_shift_conv(v, w), _tail(v, cw - 1)
+    return F.silu(out if bias is None else out + bias), tail
+
+
+def _conv_biases(p: SSMBlock, arch: ArchConfig) -> Tuple:
+    """The conv's biases of x, B and C, or three Nones."""
+    if not arch.conv_bias:
+        return None, None, None
+    return p.conv_x_bias, p.conv_B_bias, p.conv_C_bias
 
 
 def ssm_block_full(h: torch.Tensor, p: SSMBlock, arch: ArchConfig,
@@ -322,6 +355,16 @@ def ssm_block_full(h: torch.Tensor, p: SSMBlock, arch: ArchConfig,
     """Full-sequence Mamba2 block.  Returns (h + out, the state to decode
     from: the final SSD state and the last ``cw - 1`` pre-activation conv
     inputs, left-padded with zeros when S < cw - 1)."""
+    out, state = ssm_mixer_full(h, p, arch, init_state, impl, policy)
+    return h + out, state
+
+
+def ssm_mixer_full(h: torch.Tensor, p: SSMBlock, arch: ArchConfig,
+                   init_state: Optional[SSMLayerState] = None,
+                   impl: str = "kernel",
+                   policy: Optional[ShardingPolicy] = None
+                   ) -> Tuple[torch.Tensor, SSMLayerState]:
+    """:func:`ssm_block_full` without the residual: (out, state)."""
     policy = policy or NULL_POLICY
     s = arch.ssm
     hn = layers.rms_norm(h, p.ssm_norm, arch.norm_eps)
@@ -329,9 +372,10 @@ def ssm_block_full(h: torch.Tensor, p: SSMBlock, arch: ArchConfig,
     x_pre = policy.pin(x_pre, "batch", "seq", "ssm_heads", "ssm_pdim")
     z = policy.pin(z, "batch", "seq", "ssm_heads", "ssm_pdim")
 
-    x, tail_x = _conv(x_pre, p.conv_x, s.conv_width)
-    Bm, tail_B = _conv(B_pre, p.conv_B, s.conv_width)
-    Cm, tail_C = _conv(C_pre, p.conv_C, s.conv_width)
+    bx, bB, bC = _conv_biases(p, arch)
+    x, tail_x = _conv(x_pre, p.conv_x, s.conv_width, bx)
+    Bm, tail_B = _conv(B_pre, p.conv_B, s.conv_width, bB)
+    Cm, tail_C = _conv(C_pre, p.conv_C, s.conv_width, bC)
 
     dt = F.softplus(dt + p.dt_bias)
     A = -torch.exp(p.A_log)
@@ -345,8 +389,8 @@ def ssm_block_full(h: torch.Tensor, p: SSMBlock, arch: ArchConfig,
     y = y + x * p.D.to(x.dtype)[:, None]
     out = _gated_out(y, z, p, arch, policy)
 
-    return h + out, SSMLayerState(ssd=final, conv_x=tail_x,
-                                  conv_B=tail_B, conv_C=tail_C)
+    return out, SSMLayerState(ssd=final, conv_x=tail_x, conv_B=tail_B,
+                              conv_C=tail_C)
 
 
 def ssm_block_decode(h: torch.Tensor, p: SSMBlock, arch: ArchConfig,
@@ -355,18 +399,30 @@ def ssm_block_decode(h: torch.Tensor, p: SSMBlock, arch: ArchConfig,
                      ) -> Tuple[torch.Tensor, SSMLayerState]:
     """One-token Mamba2 step against the recurrent state.  h: [B, 1, d].
     Returns (h + out, the new state)."""
+    out, state = ssm_mixer_decode(h, p, arch, state, policy)
+    return h + out, state
+
+
+def ssm_mixer_decode(h: torch.Tensor, p: SSMBlock, arch: ArchConfig,
+                     state: SSMLayerState,
+                     policy: Optional[ShardingPolicy] = None
+                     ) -> Tuple[torch.Tensor, SSMLayerState]:
+    """:func:`ssm_block_decode` without the residual: (out, state)."""
     policy = policy or NULL_POLICY
     hn = layers.rms_norm(h, p.ssm_norm, arch.norm_eps)[:, 0]     # [B, d]
     z, x_new, B_new, C_new, dt = _project(hn, p, arch, policy)
 
-    def conv_step(tail, new, w):
+    def conv_step(tail, new, w, bias):
         full = torch.cat([tail, new[:, None]], dim=1)             # [B, cw, ...]
-        out = (layers.upcast(full) * layers.upcast(w)).sum(1).to(new.dtype)
-        return F.silu(out), full[:, 1:]
+        out = (layers.upcast(full) * layers.upcast(w)).sum(1)
+        if bias is not None:
+            out = out + layers.upcast(bias)
+        return F.silu(out.to(new.dtype)), full[:, 1:]
 
-    x, conv_x = conv_step(state.conv_x, x_new, p.conv_x)
-    Bm, conv_B = conv_step(state.conv_B, B_new, p.conv_B)
-    Cm, conv_C = conv_step(state.conv_C, C_new, p.conv_C)
+    bx, bB, bC = _conv_biases(p, arch)
+    x, conv_x = conv_step(state.conv_x, x_new, p.conv_x, bx)
+    Bm, conv_B = conv_step(state.conv_B, B_new, p.conv_B, bB)
+    Cm, conv_C = conv_step(state.conv_C, C_new, p.conv_C, bC)
 
     dt = F.softplus(dt + p.dt_bias)
     A = -torch.exp(p.A_log)
@@ -375,5 +431,5 @@ def ssm_block_decode(h: torch.Tensor, p: SSMBlock, arch: ArchConfig,
                       state.ssd)
     y = y + x * p.D.to(x.dtype)[:, None]
     out = _gated_out(y[:, None], z[:, None], p, arch, policy)
-    return h + out, SSMLayerState(ssd=ssd, conv_x=conv_x, conv_B=conv_B,
-                                  conv_C=conv_C)
+    return out, SSMLayerState(ssd=ssd, conv_x=conv_x, conv_B=conv_B,
+                              conv_C=conv_C)

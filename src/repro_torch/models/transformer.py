@@ -14,6 +14,10 @@ nothing).  Under a mesh the parameters are DTensors, the attention runs on
 local shards (``ops.on_shards``), and a decode step writes the new K/V
 with the reference's one-hot select, an elementwise write that a
 sequence-sharded cache takes without a collective.
+
+An arch without rotary positions (``arch.rope`` False: Granite-4.0-H's
+NoPE attention) skips them, and ``arch.attention_multiplier``, where it
+is set, is the scale of the attention scores instead of ``1/sqrt(hd)``.
 """
 from __future__ import annotations
 
@@ -89,7 +93,9 @@ def init_scale(arch: ArchConfig, name: str) -> float:
     d, f = arch.d_model, arch.d_ff
     return {"wq": d ** -0.5, "wk": d ** -0.5, "wv": d ** -0.5,
             "wo": (arch.num_heads * arch.head_dim) ** -0.5,
-            "wg": d ** -0.5, "wu": d ** -0.5, "wd": f ** -0.5}.get(name, 0.0)
+            "wg": d ** -0.5, "wu": d ** -0.5,
+            # an arch whose MLPs are all MoE blocks has d_ff 0
+            "wd": f ** -0.5 if f else 0.0}.get(name, 0.0)
 
 
 def register_empty(module: nn.Module, shapes: Dict[str, Tuple[int, ...]],
@@ -127,6 +133,20 @@ def _project_qkv(h: torch.Tensor, p: DenseBlock, arch: ArchConfig,
     return q, k, v
 
 
+def _rotate(x: torch.Tensor, positions: torch.Tensor,
+            arch: ArchConfig) -> torch.Tensor:
+    """``x`` at ``positions`` by rotary positions, where the arch has them."""
+    return layers.apply_rope(x, positions, arch.rope_theta) if arch.rope \
+        else x
+
+
+def scaled(arch: ArchConfig) -> dict:
+    """The attention calls' ``scale=`` where ``arch.attention_multiplier``
+    is set; nothing (the kernels' ``1/sqrt(hd)``) where it is not."""
+    m = arch.attention_multiplier
+    return {"scale": m} if m else {}
+
+
 def _attend(impl: str, kernel, plain, sharded: bool):
     """The attention call of ``impl``; under a mesh the plain version also
     runs on local shards, as the kernel does."""
@@ -149,14 +169,13 @@ def attention_full(h: torch.Tensor, p: DenseBlock, arch: ArchConfig,
     policy = policy or NULL_POLICY
     hn = layers.rms_norm(h, p.attn_norm, arch.norm_eps)
     q, k, v = _project_qkv(hn, p, arch, policy)
-    q = layers.apply_rope(q, positions, arch.rope_theta)
-    k = layers.apply_rope(k, positions, arch.rope_theta)
+    q, k = _rotate(q, positions, arch), _rotate(k, positions, arch)
     if policy.attn_mode == "context" and arch.q_per_kv > 1:
         k = policy.pin(k, "batch", None, "kvheads", None)
         v = policy.pin(v, "batch", None, "kvheads", None)
     attend = _attend(impl, ops.flash_attention, ref.flash_attention_ref,
                      policy.mesh is not None)
-    out = attend(q, k, v, causal=True)
+    out = attend(q, k, v, causal=True, **scaled(arch))
     out = policy.pin(out, "batch", "seq", "qheads", None)
     return attention_out(out, p, policy), (k, v)
 
@@ -175,8 +194,7 @@ def decode_qkv(h: torch.Tensor, p: DenseBlock, arch: ArchConfig,
     policy = policy or NULL_POLICY
     hn = layers.rms_norm(h, p.attn_norm, arch.norm_eps)
     q, k, v = _project_qkv(hn, p, arch, policy)
-    q = layers.apply_rope(q, pos, arch.rope_theta)
-    k = layers.apply_rope(k, pos, arch.rope_theta)
+    q, k = _rotate(q, pos, arch), _rotate(k, pos, arch)
     if policy.mesh is not None:
         from torch.distributed.tensor import Replicate
         sel = (torch.arange(k_cache.shape[1], device=k_cache.device)
@@ -226,8 +244,8 @@ def attention_decode(h: torch.Tensor, p: DenseBlock, arch: ArchConfig,
     q = decode_qkv(h, p, arch, k_cache, v_cache, pos, cache_len, policy)
     attend = _attend(impl, ops.decode_attention, ref.decode_attention_ref,
                      policy.mesh is not None)
-    return attention_out(attend(q, k_cache, v_cache, cache_len + 1), p,
-                         policy)
+    return attention_out(attend(q, k_cache, v_cache, cache_len + 1,
+                                **scaled(arch)), p, policy)
 
 
 def mlp(h: torch.Tensor, p: DenseBlock, arch: ArchConfig,

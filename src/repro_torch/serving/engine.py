@@ -5,12 +5,14 @@ int, so no step waits on the device to learn where to write.  Without an
 ``eos_id`` the generated tokens stay on the device until the last step and
 cross to the host once.
 
-On a card, a dense-family model decodes through
+On a card, a dense-family or ``hybrid_moe`` model decodes through
 ``models.graphed.GraphedDecode``: the stretches of a step between its
 attention calls replay as CUDA graphs (the counterpart of the reference's
 jitted step), captured for every batch size up to ``max_batch`` on the
-first call, and the prefill's cache is copied into the graphs' static
-cache.  Elsewhere (the CPU, the SSM and hybrid families) the cache is
+first call where the card has room (else each size when it first comes:
+``GraphedDecode.capture_all``), and the prefill writes its KV prefix (and
+a ``hybrid_moe`` model's Mamba2 states) into the graphs' static caches in
+place.  Elsewhere (the CPU, the SSM, hybrid and MoE families) the cache is
 padded to ``max_seq`` at prefill and every decode step runs eagerly,
 updating it in place.
 
@@ -21,7 +23,9 @@ decodes eagerly: ``GraphedDecode``'s captured segments and static buffers
 hold plain tensors, not DTensors.  ``decode_mode`` says which ran.  The
 greedy tokens are gathered to every rank (``full_tensor``) each step.
 
-Given a ``tracer`` (``obs.Tracer``), the engine records its own spans, and
+Given a ``tracer`` (``obs.Tracer``), the engine records its own spans, the
+model its own (the Mamba2 and MoE layers': the engine sets
+``Model.tracer`` to its own, or None, before each eager call), and
 ``GraphedDecode`` its own: ``engine.generate`` around a batch, with
 ``engine.prefill`` (its arg ``head``: the route of ``layers.logits``
 that served the prefill's head, ``bf16`` or ``upcast``), one
@@ -45,8 +49,9 @@ import numpy as np
 import torch
 
 from repro_torch.models import kvcache, layers
+from repro_torch.models import graphed
 from repro_torch.models.graphed import GraphedDecode
-from repro_torch.models.model import DENSE_FAMILIES, Model
+from repro_torch.models.model import Model
 from repro_torch.sharding.policy import whole
 
 if TYPE_CHECKING:
@@ -72,17 +77,18 @@ class Engine:
 
     @property
     def decode_mode(self) -> str:
-        """``"graphed"`` where a dense model on a card decodes through
-        ``GraphedDecode``, ``"eager (mesh)"`` where it would but its policy
-        has a mesh, ``"eager"`` elsewhere."""
+        """``"graphed"`` where a dense or ``hybrid_moe`` model on a card
+        decodes through ``GraphedDecode``, ``"eager (mesh)"`` where it
+        would but its policy has a mesh, ``"eager"`` elsewhere."""
         m = self.model
-        if m.device.type != "cuda" or m.arch.family not in DENSE_FAMILIES:
+        if m.device.type != "cuda" or m.arch.family not in graphed.FAMILIES:
             return "eager"
         return "eager (mesh)" if m.sharded else "graphed"
 
     def _decoder(self) -> Optional[GraphedDecode]:
-        """The graphed decode of a dense model on a card (captured for
-        every batch size on first use); None elsewhere."""
+        """The graphed decode of a dense or ``hybrid_moe`` model on a card
+        (every batch size captured on first use where the card has room);
+        None elsewhere."""
         m = self.model
         if self._graphed is None and self.decode_mode == "graphed":
             self._graphed = GraphedDecode(m, self.cfg.max_batch,
@@ -107,10 +113,13 @@ class Engine:
     def _prefill(self, tokens: torch.Tensor
                  ) -> Tuple[torch.Tensor, kvcache.Cache]:
         dec = self._decoder()
+        self.model.tracer = self.tracer
         if dec is None:
             return self.model.prefill(tokens, max_seq=self.cfg.max_seq)
-        logits, cache = self.model.prefill(tokens)
-        return logits, dec.load(cache, tokens.shape[1])
+        if tokens.shape[1] >= self.cfg.max_seq:
+            raise ValueError(f"{tokens.shape[1]} positions leave no room in "
+                             f"max_seq {self.cfg.max_seq}")
+        return self.model.prefill(tokens, into=dec.rows(tokens.shape[0]))
 
     def decode_step(self, cache: kvcache.Cache, cache_len: int,
                     tokens: torch.Tensor
@@ -120,6 +129,7 @@ class Engine:
         buffer that the next step overwrites."""
         dec = self._decoder()
         if dec is None:
+            self.model.tracer = self.tracer
             return self.model.decode_step(cache, cache_len, tokens)
         return dec.step(cache_len, tokens), cache
 

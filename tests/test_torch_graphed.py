@@ -3,7 +3,9 @@ engine that serves it on a card.
 
 On the CPU the segments run eagerly: each step must give exactly the
 logits and caches of ``Model.decode_step`` (the same ops in the same
-order), for every dense arch and for batch sizes that come and go.  On a
+order), for every dense arch and for batch sizes that come and go, and
+for a tiny Granite-4.0-H (``hybrid_moe``: segments split at its attention
+layers, Mamba2 states in static buffers, its prefill written into them).  On a
 card (``gpu`` marker) the segments replay as CUDA graphs: the engine's
 tokens equal eager decoding's, in fp32 and in bf16, and every step still
 calls the decode kernel's wrapper once per layer.  Also on the card, the
@@ -61,8 +63,8 @@ def test_segments_equal_decode_step_on_cpu(name):
         tokens = _tokens(m.arch, B, S + extra, seed)
         full = m.forward(tokens)
         _, want_cache = m.prefill(tokens[:, :S], max_seq=max_seq)
-        _, cache = m.prefill(tokens[:, :S])
-        cache = dec.load(cache, S)
+        cache = dec.rows(B)
+        assert m.prefill(tokens[:, :S], into=cache)[1] is cache
         for i in range(extra):
             tok = tokens[:, S + i:S + i + 1]
             want, want_cache = m.decode_step(want_cache, S + i, tok)
@@ -72,6 +74,74 @@ def test_segments_equal_decode_step_on_cpu(name):
         for name_kv in ("k", "v"):
             for c, w in zip(cache[name_kv], want_cache[name_kv]):
                 assert torch.equal(c[:, :S + extra], w[:, :S + extra])
+
+
+def test_hybrid_moe_segments_equal_decode_step_on_cpu():
+    """Granite-4.0-H's segments (split at its attention layers, Mamba2
+    states in static buffers) after a prefill written into the static
+    caches (``Model.prefill(into=)``): each step exactly the logits of
+    ``Model.decode_step`` on its own padded cache, and the states and KV
+    equal after it."""
+    import _granite_tiny as tiny
+    m, _ = tiny.model_and_weights(5)
+    S, extra, max_seq = 9, 3, 16
+    dec = GraphedDecode(m, max_batch=3, max_seq=max_seq)
+    for B, seed in ((2, 1), (3, 2)):
+        tokens = _tokens(m.arch, B, S + extra, seed)
+        _, want_cache = m.prefill(tokens[:, :S], max_seq=max_seq)
+        cache = dec.rows(B)
+        _, got_cache = m.prefill(tokens[:, :S], into=cache)
+        assert got_cache is cache
+        for i in range(extra):
+            tok = tokens[:, S + i:S + i + 1]
+            want, want_cache = m.decode_step(want_cache, S + i, tok)
+            assert torch.equal(dec.step(S + i, tok), want)
+        for got, want in zip(cache["ssm"], want_cache["ssm"]):
+            for g, w in zip(got, want):
+                assert torch.equal(g, w)
+        for g, w in zip(cache["k"], want_cache["k"]):
+            assert torch.equal(g[:, :S + extra], w[:, :S + extra])
+
+
+@pytest.mark.gpu
+def test_graphed_hybrid_moe_engine_matches_eager_on_gpu():
+    """Granite-4.0-H at its published widths, 3 layers (mamba, attention,
+    mamba), bf16: the engine's graphed steps against the model's eager
+    steps, logits within 2e-2 (as the dense bf16 case) and the same greedy
+    tokens, one decode-kernel launch per attention layer a step; the
+    captures leave ``moe.expert_rows`` as it was."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import json
+    import _granite_tiny as tiny
+    from repro_torch.kernels import decode_attention as dmod
+    from repro_torch.models import moe
+    cfg = json.loads((tiny.REPO / "portbench/configs/"
+                      "granite-4.0-h-small.json").read_text())
+    cfg.update(num_hidden_layers=3, layer_types=["mamba", "attention",
+                                                 "mamba"])
+    m = Model(tiny.family()._arch_config(cfg), device="cuda",
+              dtype=torch.bfloat16).init(torch.Generator(
+                  device="cuda").manual_seed(0))
+    B, S, new = 3, 12, 6
+    eng = Engine(m, EngineConfig(max_batch=4, max_seq=32))
+    prompts = _tokens(m.arch, B, S, 5).cuda()
+    m.prefill(prompts)                      # every layer's tally exists
+    before = {k: v.clone() for k, v in moe.expert_rows.items()}
+    assert eng.decode_mode == "graphed" and eng._decoder() is not None
+    assert all(torch.equal(moe.expert_rows[k], v) for k, v in before.items())
+    logits, cache = eng.prefill(prompts)
+    want_logits, want_cache = m.prefill(prompts, max_seq=32)
+    tok = want_tok = logits[:, -1].argmax(-1, keepdim=True)
+    n0 = dmod.launches
+    for i in range(new):
+        logits, cache = eng.decode_step(cache, S + i, tok)
+        want_logits, want_cache = m.decode_step(want_cache, S + i, want_tok)
+        assert _rel_err(logits, want_logits) < 2e-2
+        tok = logits[:, -1].argmax(-1, keepdim=True)
+        want_tok = want_logits[:, -1].argmax(-1, keepdim=True)
+        assert torch.equal(tok, want_tok)
+    assert dmod.launches - n0 == 2 * new
 
 
 def test_graphed_decode_refuses_what_it_cannot_serve():

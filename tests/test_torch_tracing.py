@@ -235,18 +235,15 @@ def test_graphed_decode_spans_each_step():
                   GraphedDecode(m, 3, 32))
     toks = torch.from_numpy(_prompts(2, 6)).long()
     for d in (dec, plain):
-        _, cache = m.prefill(toks)
-        d.load(cache, 6)
+        m.prefill(toks, into=d.rows(2))
     with tr.span("step", "x"):
         got = dec.step(6, toks[:, -1:]).clone()
     want = plain.step(6, toks[:, -1:])
     assert torch.equal(got, want)
     names = [s.name for s in tr.spans]
-    assert names == (["graphed.load", "step", "graphed.inputs"]
-                     + ["decode_attention"] * L)
-    assert tr.spans[0].args == {"B": 2, "S": 6}
-    assert [s.args["layer"] for s in tr.spans[3:]] == list(range(L))
-    assert all(s.parent == 1 for s in tr.spans[2:])
+    assert names == ["step", "graphed.inputs"] + ["decode_attention"] * L
+    assert [s.args["layer"] for s in tr.spans[2:]] == list(range(L))
+    assert all(s.parent == 0 for s in tr.spans[1:])
     # no graph is captured on the CPU, so no capture span
     assert not any(s.name == "graphed.capture" for s in tr.spans)
 
@@ -313,7 +310,8 @@ def test_tracing_on_the_card(toy_root):
                                   plain.generate(p, max_new=6))
     assert traced.decode_mode == "graphed"
     caps = [s for s in tr.spans if s.name == "graphed.capture"]
-    assert [s.args["B"] for s in caps] == [1, 2, 3, 4]
+    # ``max_batch`` first, then the rest: the card has room for them
+    assert [s.args["B"] for s in caps] == [4, 1, 2, 3]
     assert sum(s.name == "decode_attention" for s in tr.spans) == 5 * 2
     gen = next(s for s in tr.spans if s.name == "engine.generate")
     assert len(gen.args["token_gaps_ms"]) == 5
@@ -350,3 +348,35 @@ def test_tracing_on_the_card(toy_root):
     gaps = dict(out["breakdown"]["idle_gaps"])
     assert set(gaps) & {"decode_attention", "graphed.inputs",
                         "engine.decode_step", "engine.generate"}, gaps
+
+
+def test_hybrid_moe_layers_record_their_spans():
+    """A tiny Granite-4.0-H (``hybrid_moe``) batch with a tracer: one
+    ``ssm.scan`` a Mamba2 layer at prefill, one ``ssm.step`` a Mamba2 layer
+    and step, one ``moe.experts`` a layer and call (its route and routed
+    rows), each under the engine's span; without a tracer, the same
+    tokens and no span."""
+    import _granite_tiny as tiny
+    m, _ = tiny.model_and_weights(5)
+    tr = Tracer()
+    traced = Engine(m, EngineConfig(max_batch=4, max_seq=32), tracer=tr)
+    plain = Engine(m, EngineConfig(max_batch=4, max_seq=32))
+    prompts = _prompts(2, 7, 2, vocab=512)
+    out = traced.generate(prompts, max_new=4)
+    L, K = m.arch.num_layers, m.arch.moe.experts_per_token
+    mamba = [i for i, t in enumerate(m.arch.layer_types) if t == "mamba"]
+    by = {n: [s for s in tr.spans if s.name == n]
+          for n in ("ssm.scan", "ssm.step", "moe.experts")}
+    assert [s.args["layer"] for s in by["ssm.scan"]] == mamba
+    assert [s.args["layer"] for s in by["ssm.step"]] == mamba * 3
+    moe_spans = by["moe.experts"]
+    assert [s.args["layer"] for s in moe_spans] == list(range(L)) * 4
+    assert {s.args["route"] for s in moe_spans} == {"dropless"}
+    assert [s.args["rows"] for s in moe_spans] == [2 * 7 * K] * L + \
+        [2 * K] * (3 * L)
+    names = {s.parent and tr.spans[s.parent].name for s in
+             by["ssm.scan"] + by["ssm.step"] + moe_spans}
+    assert names == {"engine.prefill", "engine.decode_step"}
+    before = len(tr.spans)
+    np.testing.assert_array_equal(plain.generate(prompts, max_new=4), out)
+    assert len(tr.spans) == before and m.tracer is None
