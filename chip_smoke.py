@@ -41,7 +41,11 @@ Phases, each printing one JSON line; any failure exits non-zero:
               and library times (CUDA events, L2 flushed before each
               launch; the int8 GEMM also after a flush that only reads)
               and the roofline bound (the SSD's at the fp32-accurate
-              tensor-core rate, its FP32 FMA figure beside).
+              tensor-core rate, its FP32 FMA figure beside); the SSD decode
+              step (ssd_step) at Granite-4.0-H's batch 32 and at
+              mamba2-130m's and zamba2-7b's serve batch, out of place and
+              in place against the plain step, timed in place against its
+              bytes bound and the plain step writing a second buffer.
 4. model   -- full-width qwen2-7b and zamba2-7b in bf16 (random weights
               from a seeded generator): a prefill through the kernels with
               every kernel call also held against its plain version on the
@@ -62,7 +66,9 @@ Phases, each printing one JSON line; any failure exits non-zero:
               before each and checked just after: one flash launch per
               attention application per prefill, one decode launch per
               application per decode step, one SSD launch per Mamba2 layer
-              per prefill (qwen2 28/420/0, zamba2 14/210/81, mamba2 0/0/24).
+              per prefill (qwen2 28/420/0, zamba2 14/210/81, mamba2 0/0/24)
+              and one SSD-step launch per Mamba2 layer per decode step
+              (zamba2 1,215, mamba2 360).
 6. profile -- for each served model, the engine's prefill and decode-step
               times at the serve batch's padded shape on the host clock,
               then under
@@ -277,6 +283,7 @@ TOLS = {"float32": 2e-5, "bfloat16": 2e-2}   # tests/test_kernels.py:14-15
 QWEN, ZAMBA, MAMBA = "qwen2-7b", "zamba2-7b", "mamba2-130m"
 GEMMA, GRANITE = "gemma-2b", "granite-3-2b"     # the compound phase's others
 SCOUT, MAVERICK = "llama4-scout-17b-a16e", "llama4-maverick-400b-a17b"
+GRANITE_H = "granite-4.0-h-small"            # the benchmark's hybrid cell
 SERVE_BATCH, SERVE_MAX_SEQ, SERVE_NEW = 8, 1024, 16
 PROMPT_LENS = (256, 512)
 SSD_TOL = 2e-3                               # tests/test_kernels.py:74-77
@@ -478,7 +485,9 @@ def phase_kernels(torch, card) -> list:
     from repro_torch.kernels.quant_matmul import K_MAX as QMM_K_MAX
     from repro_torch.kernels.quant_matmul import plan as qmm_plan
     from repro_torch.kernels.quant_matmul import quant_matmul
+    from repro_torch.kernels import ssd_step as step_mod
     from repro_torch.kernels.ssd_scan import slice_plan, ssd_scan
+    from repro_torch.kernels.ssd_step import ssd_step
 
     dev = torch.device("cuda")
     sm_count = torch.cuda.get_device_properties(dev).multi_processor_count
@@ -927,6 +936,47 @@ def phase_kernels(torch, card) -> list:
             lambda: ref.ssd_scan_ref(x, dt, A, Bm, Cm, chunk=chunk),
             None)            # no single PyTorch call computes the SSD scan
 
+    def step_at(tag, B, nh, hd, ds):
+        """The SSD decode step (``ssd_step.cu``) at a model's serving
+        shape: out of place and in place against the plain step on the
+        same inputs (fp32 tolerance: y's sum runs in another order), timed
+        in place as graphed decode runs it; the plain step timed writing
+        into a second buffer, as graphed decode ran it before the kernel
+        (its four passes and the copy).  The bound is the bytes: the state
+        read and written once, x, dt, A, D, B, C and y once."""
+        x, dt, A, Bm, Cm = ssd_inputs(B, 1, nh, hd, ds)
+        x, dt, Bm, Cm = (t[:, 0].contiguous() for t in (x, dt, Bm, Cm))
+        D = 1.0 + 0.1 * randn(nh)
+        s0 = randn(B, nh, hd, ds)
+        want_y, want_s = ref.ssd_step_ref(x, dt, A, Bm, Cm, D, s0)
+        y, new = ssd_step(x, dt, A, Bm, Cm, D, s0)
+        err = 0.0
+        for part, got, want in (("y", y, want_y), ("state", new, want_s)):
+            e, oks[f"ssd_step {tag} {part}"] = _max_err(torch, got, want,
+                                                        TOLS["float32"])
+            err = max(err, e)
+        s = s0.clone()
+        n0 = step_mod.launches
+        y_in, same = ssd_step(x, dt, A, Bm, Cm, D, s, out=s)
+        oks[f"ssd_step {tag} in place"] = (
+            same is s and step_mod.launches == n0 + 1
+            and torch.equal(s, new) and torch.equal(y_in, y))
+        nbytes = 4.0 * (2 * B * nh * hd * ds + 2 * B * nh * hd + B * nh
+                        + 2 * nh + 2 * B * ds)
+        bound, by = _bound(5.0 * B * nh * hd * ds, nbytes, "float32")
+        s2 = s.clone()
+        return time_row(dict(
+            name="ssd_step", route="cuda", model=tag,
+            source="src/repro_torch/kernels/csrc/ssd_step.cu",
+            replaces="none (the JAX package steps the state in jnp)",
+            shape=f"{tag}: x [{B},{nh},{hd}] B/C [{B},{ds}] state "
+                  f"[{B},{nh},{hd},{ds}] fp32, in place",
+            max_abs_err=err, bound_ms=bound, bound_by=by,
+            blocks=B * nh * hd // 64),
+            lambda: ssd_step(x, dt, A, Bm, Cm, D, s, out=s),
+            lambda: ref.ssd_step_ref(x, dt, A, Bm, Cm, D, s, out=s2),
+            None)            # no single PyTorch call computes the step
+
     def qmm_at(tag, M, K, N):
         """The int8 product as ``ops.quant_linear`` runs it (fp32 out), one
         row per layout of w_q: K-major (the kernel's native layout; the
@@ -1002,6 +1052,11 @@ def phase_kernels(torch, card) -> list:
     rows.append(flash_at(SCOUT, B, 512, 40, 8, 128))
     rows.append(decode_at(SCOUT, B, 40, 8, 128, 528))
     extra.append(ssd_at(MAMBA, B, 474, 24, 64, 128, 128))
+    # the SSD decode step at Granite-4.0-H's batch 32 (the benchmark's
+    # cell) and at mamba2-130m's and zamba2-7b's serve batch
+    rows.append(step_at(GRANITE_H, 32, 128, 64, 128))
+    rows.append(step_at(MAMBA, B, 24, 64, 128))
+    rows.append(step_at(ZAMBA, B, 112, 64, 64))
     emit("kernels_serving_shapes", card=card["nvidia_smi"], rows=rows,
          also=extra, ok=oks)
     if not all(oks.values()):
@@ -1429,6 +1484,7 @@ def phase_serve(torch, card, model, seed: int) -> dict:
     from repro_torch.kernels import flash_attention as fmod
     from repro_torch.kernels import quant_matmul as qmod
     from repro_torch.kernels import ssd_scan as smod
+    from repro_torch.kernels import ssd_step as step_mod
     from repro_torch.models.kvcache import num_attn_applications
     from repro_torch.serving.batcher import Batcher, ServeRequest
     from repro_torch.serving.engine import Engine, EngineConfig
@@ -1449,7 +1505,7 @@ def phase_serve(torch, card, model, seed: int) -> dict:
         batcher.submit(ServeRequest(i, p, deadline_s=1e9, submitted_s=0.0))
     torch.cuda.reset_peak_memory_stats()
     mods = {"flash_attention": fmod, "decode_attention": dmod,
-            "ssd_scan": smod, "quant_matmul": qmod}
+            "ssd_scan": smod, "quant_matmul": qmod, "ssd_step": step_mod}
     for mod in mods.values():
         mod.launches = 0
     dmod.partial_launches = 0
@@ -1469,7 +1525,8 @@ def phase_serve(torch, card, model, seed: int) -> dict:
     expect = {"flash_attention": n_attn * n_batches,
               "decode_attention": n_attn * n_batches * (SERVE_NEW - 1),
               "ssd_scan": n_ssm * n_batches,
-              "quant_matmul": 0}     # no model serves int8 (Variant.quant)
+              "quant_matmul": 0,     # no model serves int8 (Variant.quant)
+              "ssd_step": n_ssm * n_batches * (SERVE_NEW - 1)}
     results_ok = all(r.result is not None and r.result.shape == (SERVE_NEW,)
                      and int(r.result.min()) >= 0
                      and int(r.result.max()) < V for r in done)
@@ -3646,6 +3703,7 @@ def _shard_serve_way(torch, model, prompts, probe, busy_of) -> dict:
     from repro_torch.kernels import flash_attention as fmod
     from repro_torch.kernels import quant_matmul as qmod
     from repro_torch.kernels import ssd_scan as smod
+    from repro_torch.kernels import ssd_step as step_mod
     from repro_torch.serving.batcher import Batcher, ServeRequest
     from repro_torch.serving.engine import Engine, EngineConfig
     from repro_torch.sharding.policy import whole
@@ -3663,7 +3721,7 @@ def _shard_serve_way(torch, model, prompts, probe, busy_of) -> dict:
     for i, p in enumerate(prompts):
         batcher.submit(ServeRequest(i, p, deadline_s=1e9, submitted_s=0.0))
     mods = {"flash_attention": fmod, "decode_attention": dmod,
-            "ssd_scan": smod, "quant_matmul": qmod}
+            "ssd_scan": smod, "quant_matmul": qmod, "ssd_step": step_mod}
     torch.cuda.reset_peak_memory_stats()
     for mod in mods.values():
         mod.launches = 0
@@ -3738,7 +3796,8 @@ def _shard_serve(torch, card, name: str, mesh, seed: int,
     n_ssm = arch.num_layers if arch.ssm is not None else 0
     expect = {"flash_attention": n_attn * plain["batches"],
               "decode_attention": n_attn * plain["batches"] * (SERVE_NEW - 1),
-              "ssd_scan": n_ssm * plain["batches"], "quant_matmul": 0}
+              "ssd_scan": n_ssm * plain["batches"], "quant_matmul": 0,
+              "ssd_step": n_ssm * plain["batches"] * (SERVE_NEW - 1)}
     fails = []
     if not same_tokens:
         fails.append(f"{name}: tokens differ with the policy")
@@ -4224,6 +4283,12 @@ def main(argv=None) -> int:
         if row["name"] == "quant_matmul":   # no serve run calls it
             row["launches"] = int8_launches[row["model"]][row["layout"]]
             row["launches_from"] = "int8 phase"
+            continue
+        if row["model"] == GRANITE_H:   # served by the benchmark, not here
+            row["launches"] = None
+            row["launches_from"] = ("not served here: the benchmark's "
+                                    "Granite cell steps 36 states a step, "
+                                    "in CUDA graphs")
             continue
         if row["model"] in (GEMMA, GRANITE):  # served in the compound phase
             # 0 where the plan serves that arch no call

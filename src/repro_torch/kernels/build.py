@@ -21,7 +21,8 @@ from typing import Dict, Iterable, Optional
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
-SOURCES = ("flash_attention", "decode_attention", "ssd_scan", "quant_matmul")
+SOURCES = ("flash_attention", "decode_attention", "ssd_scan", "quant_matmul",
+           "ssd_step")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -42,6 +43,7 @@ _SIGNATURES = {
     "quant_matmul": {"quant_matmul_launch":
                      [_ptr] * 6 + [_int] * 3 + [_i64] * 3 + [_int] * 3
                      + [_ptr]},
+    "ssd_step": {"ssd_step_launch": [_ptr] * 9 + [_int] * 4 + [_ptr]},
 }
 
 _libs: Dict[str, ctypes.CDLL] = {}

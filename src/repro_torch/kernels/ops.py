@@ -11,10 +11,10 @@ result would carry no gradient), so training runs the plain versions
 A DTensor input (a model under a ``ShardingPolicy`` with a mesh) runs
 through :func:`on_shards`: each wrapper takes its inputs to placements on
 which its work is local (batch and query/KV heads for the attention
-kernels; batch, SSM heads and head-dim rows for the SSD; rows or columns
-for the int8 GEMM), redistributing explicitly where a sharding cannot be
-taken locally, and calls the kernel, or its plain version on the CPU, on
-each rank's local shards.  The extension itself never sees a DTensor.
+kernels; batch, SSM heads and head-dim rows for the SSD and its decode
+step; rows or columns for the int8 GEMM), redistributing explicitly where
+a sharding cannot be taken locally, and calls the kernel, or its plain
+version on the CPU, on each rank's local shards.  The extension itself never sees a DTensor.
 
 The attention follows the JAX package's sequence parallelism, as its GSPMD
 lowering divides the work, and gathers neither the cache nor the queries:
@@ -41,6 +41,7 @@ from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import quant_matmul as _qmm
 from repro_torch.kernels import ref
 from repro_torch.kernels import ssd_scan as _ssd
+from repro_torch.kernels import ssd_step as _step
 from repro_torch.sharding.policy import is_dtensor, redistribute, seq_rank
 
 
@@ -202,6 +203,24 @@ def on_shards(fn: Callable, *args, **kwargs):
                                             **kwargs),
             mesh, (x, dt, A, Bm, Cm, init), in_p, out_p,
             (x.shape, (B, nh, hd, ds)))
+    if kind == "step":
+        # the state's batch, heads and head-dim rows, as the state (else x)
+        # is split; A, D, Bm and Cm whole on each rank.  ``out`` takes the
+        # new state after the shards are joined.
+        x, dt, A, Bm, Cm, D, state = args
+        out = kwargs.pop("out", None)
+        plan = _plan(mesh, {0: x.shape[0], 1: x.shape[1], 2: x.shape[2]},
+                     [(state, (0, 1, 2)), (x, (0, 1, 2))])
+        xp, heads = _placed(plan, {0: 0, 1: 1, 2: 2}), _placed(plan, {1: 0})
+        rows = _placed(plan, {0: 0})
+        y, new = run_local(lambda *t: fn(*t, **kwargs), mesh, args,
+                           (xp, _placed(plan, {0: 0, 1: 1}), heads, rows,
+                            rows, heads, xp), (xp, xp),
+                           (x.shape, state.shape))
+        if out is None:
+            return y, new
+        out.copy_(new)
+        return y, out
     # quant: rows of x_q or columns of w_q
     x_q, w_q, x_scale, w_scale = args[:4]
     plan = _plan(mesh, {0: x_q.shape[0], 1: w_q.shape[1]},
@@ -334,6 +353,21 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                             init_state=init_state)
 
 
+def ssd_step(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+             Bm: torch.Tensor, Cm: torch.Tensor, D: torch.Tensor,
+             state: torch.Tensor, *, out: Optional[torch.Tensor] = None
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One Mamba2 decode step: (y [B,nh,hd], the new state [B,nh,hd,ds])
+    from x [B,nh,hd], dt [B,nh], A and D [nh], Bm and Cm [B,ds] and the
+    state (``ref.ssd_step_ref``).  With ``out`` (which may be ``state``)
+    the new state is written there; without it, into a new tensor."""
+    if _sharded(x, dt, A, Bm, Cm, D, state):
+        return on_shards(ssd_step, x, dt, A, Bm, Cm, D, state, out=out)
+    if _kernel_path("ssd_step", x, dt, A, Bm, Cm, D, state):
+        return _step.ssd_step(x, dt, A, Bm, Cm, D, state, out=out)
+    return ref.ssd_step_ref(x, dt, A, Bm, Cm, D, state, out=out)
+
+
 def quant_matmul(x_q: torch.Tensor, w_q: torch.Tensor, x_scale: torch.Tensor,
                  w_scale: torch.Tensor, *,
                  out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
@@ -369,4 +403,5 @@ _KIND = {f.__name__: kind for f, kind in (
     (flash_attention, "flash"), (ref.flash_attention_ref, "flash"),
     (decode_attention, "decode"), (ref.decode_attention_ref, "decode"),
     (ssd_scan, "ssd"), (ref.ssd_scan_ref, "ssd"),
+    (ssd_step, "step"), (ref.ssd_step_ref, "step"),
     (quant_matmul, "quant"), (ref.quant_matmul_ref, "quant"))}

@@ -11,7 +11,8 @@ shards' shares, which ``ops`` runs across the ranks of a mesh whose cache
 is sequence-sharded.
 ``ssd_scan_ref`` is the SSD's chunked dual form (the CPU path of
 ``ops.ssd_scan``); ``ssd_ref`` is its exact sequential recurrence, the
-oracle both are held against.  ``quant_matmul_ref`` and ``quantize_int8``
+oracle both are held against.  ``ssd_step_ref`` is one decode step of that
+recurrence with the skip term (the CPU path of ``ops.ssd_step``).  ``quant_matmul_ref`` and ``quantize_int8``
 are the int8 path's (``repro.kernels.ref``'s of the same names).
 """
 from __future__ import annotations
@@ -245,6 +246,24 @@ def ssd_ref(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         state = state * decay[..., None, None] + upd
         ys.append(torch.einsum("bhpn,bn->bhp", state, Cm[:, t]))
     return torch.stack(ys, dim=1), state
+
+
+def ssd_step_ref(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                 Bm: torch.Tensor, Cm: torch.Tensor, D: torch.Tensor,
+                 state: torch.Tensor, out: Optional[torch.Tensor] = None
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One recurrent SSD decode step with the skip term.  x: [B,nh,hd];
+    dt: [B,nh]; A, D: [nh]; Bm, Cm: [B,ds]; state: [B,nh,hd,ds] ->
+    (y = state' . C + D x [B,nh,hd], state' = state exp(dt A) + dt x (x) B),
+    state' written into ``out`` (which may be ``state``) where given."""
+    dA = torch.exp(dt * A)
+    upd = torch.einsum("bhp,bn->bhpn", x * dt[..., None], Bm)
+    new = state * dA[..., None, None] + upd
+    y = torch.einsum("bhpn,bn->bhp", new, Cm) + x * D[:, None]
+    if out is None:
+        return y, new
+    out.copy_(new)
+    return y, out
 
 
 def quant_matmul_ref(x_q: torch.Tensor, w_q: torch.Tensor,

@@ -23,9 +23,11 @@ only: a segment then runs every layer between two attention layers (its
 Mamba2 step and its dropless MoE block, whose sort, offsets and grouped
 products stay on the device), captured a layer to a graph, and the
 residual multiplier scales each branch as in ``Model.decode_step``.  Its
-Mamba2 states are static buffers too, each step's new state copied into
-them.  Capturing replays nothing, but the eager pass before it runs the MoE
-blocks on the buffers' tokens: ``moe.expert_rows`` is restored after it.
+Mamba2 states are static buffers too: the SSD step (``ops.ssd_step``, the
+model's ``impl``) updates each SSD state in place, and each step's new
+conv tails are copied into theirs.  Capturing replays nothing, but the
+eager pass before it runs the MoE blocks on the buffers' tokens:
+``moe.expert_rows`` is restored after it.
 
 What a graph reads at replay lives in static buffers: the KV caches, of
 ``max_batch`` rows (a batch of B uses rows ``:B``), and per batch size the
@@ -149,9 +151,9 @@ class _HybridBatch(_Batch):
     MoE layers up to attention layer j's query, key and value (or the
     logits), each Mamba2 layer against its static state.  A segment is
     captured as one graph a layer (its pieces), not one graph: the graphs
-    share one memory pool, and a piece's temporaries (a Mamba2 step's
-    state-sized products, 134 MB each at Granite's widths and batch 32)
-    are then held once, not once for each layer of a segment."""
+    share one memory pool, and a piece's temporaries (with the plain SSD
+    step, its state-sized products, 134 MB each at Granite's widths and
+    batch 32) are then held once, not once for each layer of a segment."""
 
     def __init__(self, dec: "GraphedDecode", B: int):
         super().__init__(dec, B)
@@ -181,8 +183,9 @@ class _HybridBatch(_Batch):
 
         def mamba(h, i):
             st = self.ssm[self.ssm_of[i]]
-            out, new = ssm_mod.ssm_mixer_decode(h, m.blocks[i], arch, st)
-            for dst, src in zip(st, new):
+            out, new = ssm_mod.ssm_mixer_decode(h, m.blocks[i], arch, st,
+                                                m.impl, ssd_out=st.ssd)
+            for dst, src in zip(st[1:], new[1:]):     # the conv tails
                 dst.copy_(src)
             return moe(h + out * mult, i)
 
@@ -253,8 +256,8 @@ class GraphedDecode:
     against static caches of ``max_batch`` rows and ``max_seq`` positions.
 
     On a card each batch size's segments are captured as CUDA graphs the
-    first time :meth:`rows` sees it, or up front by :meth:`capture_all`
-    where the card has room; elsewhere they run eagerly."""
+    first time :meth:`rows` sees it, ``max_batch``'s up front by
+    :meth:`capture_max_batch`; elsewhere they run eagerly."""
 
     def __init__(self, model: Model, max_batch: int, max_seq: int,
                  tracer: Optional[Tracer] = None):
@@ -293,25 +296,11 @@ class GraphedDecode:
             self._batches[B] = b
         return b
 
-    def capture_all(self) -> None:
-        """Build (and on a card capture) every batch size up to
-        ``max_batch``, so no later step pays for a capture, where the card
-        has room: ``max_batch`` first, then the others only if their
-        graphs, estimated from its as growing with the batch, would take
-        at most half of the memory left free.  Otherwise each later size
-        is captured when it first comes: all 32 of Granite-4.0-H's sizes
-        (≈ 5 GiB at batch 32) left its next prefill out of memory beside
-        60 GiB of weights on an 80 GB H100."""
-        dev = self.model.device
-        before = torch.cuda.memory_reserved(dev) if self.capture else 0
+    def capture_max_batch(self) -> None:
+        """Build (and on a card capture) the graphs of ``max_batch``, the
+        size a full queue runs, up front; every other size is captured
+        when it first comes (:meth:`rows`, :meth:`step`)."""
         self._batch(self.max_batch)
-        if self.capture:
-            took = torch.cuda.memory_reserved(dev) - before
-            if took * (self.max_batch - 1) / 2 > \
-                    torch.cuda.mem_get_info(dev)[0] / 2:
-                return
-        for B in range(1, self.max_batch):
-            self._batch(B)
 
     def rows(self, B: int) -> kvcache.Cache:
         """The static caches' rows of a batch of ``B`` (capturing its

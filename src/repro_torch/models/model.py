@@ -31,9 +31,10 @@ trainable (``training.train_step`` does).  The serving entry points run
 under ``torch.no_grad()``, so their outputs never carry a graph.
 
 ``tracer`` (an ``obs.Tracer``, which ``serving.Engine`` hands over) makes
-the Mamba2 layers record an ``ssm.scan`` span at prefill and an
-``ssm.step`` span at decode (arg ``layer``), and the ``hybrid_moe``
-family's MoE calls a ``moe.experts`` span (args ``layer``, ``route``,
+the Mamba2 layers record an ``ssm.scan`` span at prefill (arg ``layer``)
+and an ``ssm.step`` span at decode (args ``layer`` and ``route``: the
+route ``ssm.ssm_step_routes`` tallied, the kernel or the plain step), and
+the ``hybrid_moe`` family's MoE calls a ``moe.experts`` span (args ``layer``, ``route``,
 ``rows``: the routed (token, expert) pairs); host time around the
 enqueue, no synchronisation.  Without one nothing is recorded.
 
@@ -373,6 +374,20 @@ class Model(nn.Module):
             return contextlib.nullcontext()
         return self.tracer.span(name, "model", **args)
 
+    def _ssm_step(self, i: int, fn, *args):
+        """Layer ``i``'s Mamba2 decode step ``fn(*args)`` in an
+        ``ssm.step`` span, its ``route`` the one ``ssm_step_routes``
+        tallied for it."""
+        if self.tracer is None:
+            return fn(*args)
+        before = dict(ssm_mod.ssm_step_routes)
+        with self._span("ssm.step", layer=i) as span:
+            out = fn(*args)
+            span.args["route"] = "+".join(
+                r for r, n in ssm_mod.ssm_step_routes.items()
+                if n > before[r])
+        return out
+
     def _moe(self, h: torch.Tensor, blk, i: int) -> torch.Tensor:
         """Layer ``i``'s MoE block on h [B, S, d] (the ``hybrid_moe``
         family)."""
@@ -569,18 +584,18 @@ class Model(nn.Module):
 
         def mamba(h, lo, hi):
             for i in range(lo, hi):
-                with self._span("ssm.step", layer=i):
-                    h, cache["ssm"][i] = ssm_mod.ssm_block_decode(
-                        h, self.blocks[i], arch, cache["ssm"][i], pol)
+                h, cache["ssm"][i] = self._ssm_step(
+                    i, ssm_mod.ssm_block_decode, h, self.blocks[i], arch,
+                    cache["ssm"][i], self.impl, pol)
             return h
 
         def hybrid_moe(h):
             m, a, j = arch.residual_multiplier, 0, 0
             for i, blk in enumerate(self.blocks):
                 if isinstance(blk, ssm_mod.SSMBlock):
-                    with self._span("ssm.step", layer=i):
-                        out, cache["ssm"][j] = ssm_mod.ssm_mixer_decode(
-                            h, blk, arch, cache["ssm"][j])
+                    out, cache["ssm"][j] = self._ssm_step(
+                        i, ssm_mod.ssm_mixer_decode, h, blk, arch,
+                        cache["ssm"][j], self.impl)
                     j += 1
                 else:
                     out = tfm.attention_decode(h, blk, arch, cache["k"][a],

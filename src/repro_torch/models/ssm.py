@@ -7,8 +7,12 @@ fp32 in a bf16 model, as the reference keeps them.  Full-sequence
 mode runs the SSD through ``kernels.ops.ssd_scan`` (the CUDA kernel on a
 CUDA tensor, its plain dual form on a CPU one) or, with ``impl="plain"``,
 the plain version directly.  Decode keeps the recurrent state
-(SSD state ``[B, nh, hd, ds]`` in fp32 plus the conv tails) and steps it
-in plain PyTorch: the JAX package has no kernel for that step either.
+(SSD state ``[B, nh, hd, ds]`` in fp32 plus the conv tails) and steps the
+SSD state through ``kernels.ops.ssd_step`` (a CUDA kernel of the port's
+own that reads and writes the state once, in place where the caller hands
+it ``ssd_out``; the JAX package steps it in jnp) or, with
+``impl="plain"``, its plain version.  ``ssm_step_routes`` tallies the
+decode steps by route.
 
 Granite-4.0-H's Mamba2 (``arch.conv_bias``, ``arch.gate_norm_groups``; the
 port's own ``hybrid_moe`` family) adds a bias to the conv over x, B and C
@@ -244,31 +248,23 @@ def conv_and_tail(x: torch.Tensor, w: torch.Tensor
                          (x.shape, (x.shape[0], n) + tuple(x.shape[2:])))
 
 
-def ssd_step(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
-             Bm: torch.Tensor, Cm: torch.Tensor, state: torch.Tensor
-             ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """One recurrent SSD step.  x: [B,nh,hd]; dt: [B,nh]; A: [nh];
-    Bm, Cm: [B,ds]; state: [B,nh,hd,ds] -> (y [B,nh,hd], state).  Where
-    the state or ``x`` is a DTensor sharded on its head dim (dim 2; torch
-    2.11's einsum cannot flatten it), the step runs on local shards split
-    as the state (else ``x``) is by batch, heads and head-dim rows (the
-    SSD kernel's split), ``A``, ``Bm`` and ``Cm`` whole on each rank."""
+# Decode steps by route: "kernel" (``ops.ssd_step`` on the card) or
+# "plain" (the plain arithmetic: CPU tensors, or ``impl="plain"``), as
+# :func:`ssm_mixer_decode` dispatches them.  Under CUDA graphs it counts
+# eager calls and captures, not replays.
+ssm_step_routes = {"kernel": 0, "plain": 0}
+
+
+def _step_fn(route: str, x: torch.Tensor, state: torch.Tensor):
+    """The SSD decode step of ``route``: ``ops.ssd_step``, or the plain
+    version, on local shards where the state or ``x`` is a DTensor sharded
+    on its head dim (dim 2; torch 2.11's einsum cannot flatten it)."""
+    if route == "kernel":
+        return ops.ssd_step
     if any(is_dtensor(t) and any(q.is_shard(2) for q in t.placements)
            for t in (state, x)):
-        mesh = (state if is_dtensor(state) else x).device_mesh
-        B, nh, hd = x.shape
-        plan = ops._plan(mesh, {0: B, 1: nh, 2: hd},
-                         [(state, (0, 1, 2)), (x, (0, 1, 2))])
-        xp = ops._placed(plan, {0: 0, 1: 1, 2: 2})
-        in_p = (xp, ops._placed(plan, {0: 0, 1: 1}),
-                ops._placed(plan, {1: 0}), ops._placed(plan, {0: 0}),
-                ops._placed(plan, {0: 0}), xp)
-        return ops.run_local(ssd_step, mesh, (x, dt, A, Bm, Cm, state),
-                             in_p, (xp, xp), (x.shape, state.shape))
-    dA = torch.exp(dt * A)
-    upd = torch.einsum("bhp,bn->bhpn", x * dt[..., None], Bm)
-    state = state * dA[..., None, None] + upd
-    return torch.einsum("bhpn,bn->bhp", state, Cm), state
+        return partial(ops.on_shards, ref.ssd_step_ref)
+    return ref.ssd_step_ref
 
 
 def _gated_out(y: torch.Tensor, z: torch.Tensor, p: SSMBlock,
@@ -394,20 +390,24 @@ def ssm_mixer_full(h: torch.Tensor, p: SSMBlock, arch: ArchConfig,
 
 
 def ssm_block_decode(h: torch.Tensor, p: SSMBlock, arch: ArchConfig,
-                     state: SSMLayerState,
+                     state: SSMLayerState, impl: str = "kernel",
                      policy: Optional[ShardingPolicy] = None
                      ) -> Tuple[torch.Tensor, SSMLayerState]:
     """One-token Mamba2 step against the recurrent state.  h: [B, 1, d].
     Returns (h + out, the new state)."""
-    out, state = ssm_mixer_decode(h, p, arch, state, policy)
+    out, state = ssm_mixer_decode(h, p, arch, state, impl, policy)
     return h + out, state
 
 
 def ssm_mixer_decode(h: torch.Tensor, p: SSMBlock, arch: ArchConfig,
-                     state: SSMLayerState,
-                     policy: Optional[ShardingPolicy] = None
+                     state: SSMLayerState, impl: str = "kernel",
+                     policy: Optional[ShardingPolicy] = None,
+                     ssd_out: Optional[torch.Tensor] = None
                      ) -> Tuple[torch.Tensor, SSMLayerState]:
-    """:func:`ssm_block_decode` without the residual: (out, state)."""
+    """:func:`ssm_block_decode` without the residual: (out, state).  The
+    new SSD state is written into ``ssd_out`` where given (it may be
+    ``state.ssd``: the step then updates it in place), else into a new
+    tensor; the conv tails are always new."""
     policy = policy or NULL_POLICY
     hn = layers.rms_norm(h, p.ssm_norm, arch.norm_eps)[:, 0]     # [B, d]
     z, x_new, B_new, C_new, dt = _project(hn, p, arch, policy)
@@ -427,9 +427,11 @@ def ssm_mixer_decode(h: torch.Tensor, p: SSMBlock, arch: ArchConfig,
     dt = F.softplus(dt + p.dt_bias)
     A = -torch.exp(p.A_log)
     x = layers.upcast(x)
-    y, ssd = ssd_step(x, dt, A, layers.upcast(Bm), layers.upcast(Cm),
-                      state.ssd)
-    y = y + x * p.D.to(x.dtype)[:, None]
+    route = "kernel" if impl == "kernel" and ops._on_cuda(x) else "plain"
+    ssm_step_routes[route] += 1
+    y, ssd = _step_fn(route, x, state.ssd)(
+        x, dt, A, layers.upcast(Bm), layers.upcast(Cm), p.D.to(x.dtype),
+        state.ssd, out=ssd_out)
     out = _gated_out(y[:, None], z[:, None], p, arch, policy)
     return out, SSMLayerState(ssd=ssd, conv_x=conv_x, conv_B=conv_B,
                               conv_C=conv_C)

@@ -80,7 +80,8 @@ class EngineBackend:
     """Serve batches on the port's ``Engine`` instances.
 
     One engine is built per distinct model arch on first use; a warm-up
-    generate (which also builds the CUDA kernels) stays outside the timed
+    generate (which also builds the CUDA kernels, and under graphed decode
+    one per batch size, which captures its graphs) stays outside the timed
     service.  Service time is the wall clock of the batched greedy decode,
     read after ``torch.cuda.synchronize()`` on a card.
 
@@ -130,8 +131,13 @@ class EngineBackend:
             model.init(gen)
             eng = Engine(model, EngineConfig(max_batch=self.max_batch,
                                              max_seq=self.max_seq))
-            # warm-up: kernel build and first launches outside timed serving
-            eng.generate(np.zeros((1, self.prompt_len), np.int32), max_new=2)
+            # warm-up: kernel build, first launches and (graphed decode)
+            # each batch size's capture outside timed serving
+            sizes = (range(1, self.max_batch + 1)
+                     if eng.decode_mode == "graphed" else (1,))
+            for b in sizes:
+                eng.generate(np.zeros((b, self.prompt_len), np.int32),
+                             max_new=2)
             self._sync()
             self._engines[arch_name] = eng
         return eng

@@ -8,11 +8,10 @@ cross to the host once.
 On a card, a dense-family or ``hybrid_moe`` model decodes through
 ``models.graphed.GraphedDecode``: the stretches of a step between its
 attention calls replay as CUDA graphs (the counterpart of the reference's
-jitted step), captured for every batch size up to ``max_batch`` on the
-first call where the card has room (else each size when it first comes:
-``GraphedDecode.capture_all``), and the prefill writes its KV prefix (and
-a ``hybrid_moe`` model's Mamba2 states) into the graphs' static caches in
-place.  Elsewhere (the CPU, the SSM, hybrid and MoE families) the cache is
+jitted step), captured for ``max_batch`` on the first call and for each
+other batch size when it first comes (``GraphedDecode.capture_max_batch``),
+and the prefill writes its KV prefix (and a ``hybrid_moe`` model's Mamba2
+states) into the graphs' static caches in place.  Elsewhere (the CPU, the SSM, hybrid and MoE families) the cache is
 padded to ``max_seq`` at prefill and every decode step runs eagerly,
 updating it in place.
 
@@ -87,13 +86,13 @@ class Engine:
 
     def _decoder(self) -> Optional[GraphedDecode]:
         """The graphed decode of a dense or ``hybrid_moe`` model on a card
-        (every batch size captured on first use where the card has room);
-        None elsewhere."""
+        (``max_batch`` captured on first use, each other size when it
+        first comes); None elsewhere."""
         m = self.model
         if self._graphed is None and self.decode_mode == "graphed":
             self._graphed = GraphedDecode(m, self.cfg.max_batch,
                                           self.cfg.max_seq, self.tracer)
-            self._graphed.capture_all()
+            self._graphed.capture_max_batch()
         return self._graphed
 
     def prefill(self, tokens: torch.Tensor

@@ -76,14 +76,27 @@ def test_segments_equal_decode_step_on_cpu(name):
                 assert torch.equal(c[:, :S + extra], w[:, :S + extra])
 
 
-def test_hybrid_moe_segments_equal_decode_step_on_cpu():
+def test_hybrid_moe_segments_equal_decode_step_on_cpu(monkeypatch):
     """Granite-4.0-H's segments (split at its attention layers, Mamba2
     states in static buffers) after a prefill written into the static
     caches (``Model.prefill(into=)``): each step exactly the logits of
     ``Model.decode_step`` on its own padded cache, and the states and KV
-    equal after it."""
+    equal after it.  The segments' Mamba2 steps write the new SSD state
+    into the static one in place (``ssd_out``, same storage); the model's
+    own steps return a new state."""
     import _granite_tiny as tiny
+    from repro_torch.models import ssm as ssm_mod
     m, _ = tiny.model_and_weights(5)
+    in_place = []
+    mixer = ssm_mod.ssm_mixer_decode
+
+    def spy(h, p, arch, state, *args, ssd_out=None, **kw):
+        ptr = state.ssd.data_ptr()
+        out, new = mixer(h, p, arch, state, *args, ssd_out=ssd_out, **kw)
+        in_place.append((ssd_out is not None, new.ssd.data_ptr() == ptr))
+        return out, new
+
+    monkeypatch.setattr(ssm_mod, "ssm_mixer_decode", spy)
     S, extra, max_seq = 9, 3, 16
     dec = GraphedDecode(m, max_batch=3, max_seq=max_seq)
     for B, seed in ((2, 1), (3, 2)):
@@ -101,6 +114,10 @@ def test_hybrid_moe_segments_equal_decode_step_on_cpu():
                 assert torch.equal(g, w)
         for g, w in zip(cache["k"], want_cache["k"]):
             assert torch.equal(g[:, :S + extra], w[:, :S + extra])
+    n_ssm = m.arch.layer_types.count("mamba")
+    assert sorted(set(in_place)) == [(False, False), (True, True)]
+    assert in_place.count((True, True)) == in_place.count((False, False)) \
+        == 2 * extra * n_ssm
 
 
 @pytest.mark.gpu

@@ -456,7 +456,8 @@ def test_chip_smoke_moe_phase_rehearsal(monkeypatch, capsys, fault,
         chip_smoke.MOE_LAYERS[SCOUT] * (chip_smoke.SERVE_NEW - 1)
     assert launches[MAVERICK] == {"flash_attention": 4, "decode_attention":
                                   4 * (chip_smoke.SERVE_NEW - 1),
-                                  "ssd_scan": 0, "quant_matmul": 0}
+                                  "ssd_scan": 0, "quant_matmul": 0,
+                                  "ssd_step": 0}
     out = capsys.readouterr().out
     for phase in ("moe_prefill", "moe_serve_drops", "profile_regions",
                   "moe"):

@@ -834,6 +834,7 @@ def shard_phase(monkeypatch):
     from repro_torch.kernels import decode_attention as dmod
     from repro_torch.kernels import flash_attention as fmod
     from repro_torch.kernels import ssd_scan as smod
+    from repro_torch.kernels import ssd_step as step_mod
 
     def reduced(torch_, name, num_layers=None, dtype=None, seed=0):
         return Model(ARCHS[name].reduced(), device="cpu",
@@ -851,6 +852,8 @@ def shard_phase(monkeypatch):
     monkeypatch.setattr(smod, "ssd_scan", _counting(
         smod, lambda *a, init_state=None: ref.ssd_scan_ref(
             *a, init_state=init_state)))
+    monkeypatch.setattr(step_mod, "ssd_step",
+                        _counting(step_mod, ref.ssd_step_ref))
     for name in ("synchronize", "reset_peak_memory_stats", "empty_cache"):
         monkeypatch.setattr(torch.cuda, name, lambda *a, **kw: None)
     monkeypatch.setattr(torch.cuda, "max_memory_allocated",
@@ -880,6 +883,7 @@ def test_chip_smoke_shard_phase_rehearsal(shard_phase, capsys):
     assert launches["qwen2-7b"]["flash_attention"] == 2
     assert launches["qwen2-7b"]["decode_attention"] == 2 * 15
     assert launches["mamba2-130m"]["ssd_scan"] == 2
+    assert launches["mamba2-130m"]["ssd_step"] == 2 * 15
     train = by["shard_train"][0]
     assert train["max_loss_rel_diff"] <= 1e-3
     assert train["rules"]["embed"] == ["data"]

@@ -21,6 +21,7 @@ from repro_torch.kernels import decode_attention as dmod  # noqa: E402
 from repro_torch.kernels import flash_attention as fmod  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.kernels import ssd_scan as smod  # noqa: E402
+from repro_torch.kernels import ssd_step as step_mod  # noqa: E402
 from repro_torch.models import Model  # noqa: E402
 from repro_torch.models import ssm as tssm  # noqa: E402
 from repro_torch.models.convert import from_jax_params  # noqa: E402
@@ -285,6 +286,119 @@ def test_ssd_wrapper_refuses_cpu_tensors():
     assert smod.launches == before
     with pytest.raises(ValueError, match="no kernel path"):
         ops.ssd_scan(*(t.to("meta") for t in (x, dt, A, Bm, Cm)))
+
+
+def _step_inputs(seed, B, nh, hd, ds):
+    """x, dt (softplus'd), A (< 0), Bm, Cm, D and a state for one decode
+    step, fp32 and contiguous."""
+    x, dt, A, Bm, Cm = _ssd_inputs(seed, B, 1, nh, hd, ds)
+    rng = np.random.default_rng(seed + 1000)
+    D = (1.0 + 0.1 * rng.standard_normal(nh)).astype(np.float32)
+    state = rng.standard_normal((B, nh, hd, ds)).astype(np.float32)
+    return _t(*(np.ascontiguousarray(a) for a in (
+        x[:, 0], dt[:, 0], A, Bm[:, 0], Cm[:, 0], D, state)))
+
+
+def _einsum_step(x, dt, A, Bm, Cm, D, state):
+    """The decode step as the port computed it before ``ops.ssd_step``:
+    the recurrence's einsums, then the skip term ``x D``."""
+    dA = torch.exp(dt * A)
+    upd = torch.einsum("bhp,bn->bhpn", x * dt[..., None], Bm)
+    state = state * dA[..., None, None] + upd
+    y = torch.einsum("bhpn,bn->bhp", state, Cm)
+    return y + x * D[:, None], state
+
+
+@pytest.mark.parametrize("out", [None, "new buffer", "the state"])
+@pytest.mark.parametrize("hd,ds", [(64, 128), (64, 64), (16, 32)])
+def test_ssd_step_on_cpu_equals_the_einsum_step_bit_for_bit(out, hd, ds):
+    """``ops.ssd_step`` on CPU tensors is the plain step: the einsums the
+    model ran before it, bit for bit over three chained steps, the new
+    state in ``out`` where given (in place where ``out`` is the state) and
+    the caller's state left alone otherwise."""
+    x, dt, A, Bm, Cm, D, s = _step_inputs(3, 2, 3, hd, ds)
+    want_s, got_s = s.clone(), s.clone()
+    for _ in range(3):
+        buf = {None: None, "new buffer": torch.full_like(s, float("nan")),
+               "the state": got_s}[out]
+        want_y, want_s = _einsum_step(x, dt, A, Bm, Cm, D, want_s)
+        before = got_s.clone()
+        y, new = ops.ssd_step(x, dt, A, Bm, Cm, D, got_s, out=buf)
+        assert torch.equal(y, want_y) and torch.equal(new, want_s)
+        if buf is not None:
+            assert new is buf
+        if out != "the state":
+            assert torch.equal(got_s, before)
+        got_s = new
+
+
+def test_ssd_step_wrapper_refuses_what_the_kernel_does_not_take():
+    """The CUDA wrapper launches or raises: CPU tensors, a bf16 state, a
+    d_state or head_dim it has no instance for, an ``out`` of another
+    shape; only ``ops`` picks the plain step, and only for a CPU tensor."""
+    x, dt, A, Bm, Cm, D, s = _step_inputs(4, 2, 3, 64, 128)
+    before = step_mod.launches
+    with pytest.raises(ValueError, match="CUDA"):
+        step_mod.ssd_step(x, dt, A, Bm, Cm, D, s)
+    with pytest.raises(ValueError, match="CUDA"):
+        step_mod.ssd_step(x, dt, A, Bm, Cm, D, s, out=s)
+    with pytest.raises(TypeError, match="float32"):
+        step_mod.ssd_step(x, dt, A, Bm, Cm, D, s.bfloat16())
+    with pytest.raises(TypeError, match="float32"):
+        step_mod.ssd_step(x.double(), dt, A, Bm, Cm, D, s)
+    for bad_hd, bad_ds in ((64, 32), (64, 16), (112, 128), (48, 64)):
+        args = _step_inputs(4, 2, 3, bad_hd, bad_ds)
+        with pytest.raises(ValueError, match="head_dim"):
+            step_mod.ssd_step(*args)
+    with pytest.raises(ValueError, match="shapes"):
+        step_mod.ssd_step(x, dt, A, Bm, Cm, D, s, out=s[:1])
+    with pytest.raises(ValueError, match="shapes"):
+        step_mod.ssd_step(x, dt, A, Bm, Cm, D[:2], s)
+    assert step_mod.launches == before
+    with pytest.raises(ValueError, match="no kernel path"):
+        ops.ssd_step(*(t.to("meta") for t in (x, dt, A, Bm, Cm, D, s)))
+
+
+def test_ssm_step_routes_count_the_plain_step_off_the_card(monkeypatch):
+    """``ssm_step_routes`` and the ``ssm.step`` span's ``route`` name the
+    plain step for CPU tensors and for ``impl="plain"``; with tensors
+    taken for the card's (``ops._on_cuda`` forced), ``impl="kernel"``
+    reaches the kernel wrapper once a layer and step (a counting plain
+    stand-in here) and ``impl="plain"`` never does."""
+    from repro_torch.obs.tracing import Tracer
+    arch = ARCHS["mamba2-130m"].reduced()
+    L, B, S = arch.num_layers, 2, 5
+    tokens = torch.from_numpy(_tokens(arch, B, S + 1, 8)).long()
+    models = {impl: Model(arch, device="cpu", dtype=torch.float32,
+                          impl=impl).init(torch.Generator().manual_seed(0))
+              for impl in ("kernel", "plain")}
+    caches = {impl: m.prefill(tokens[:, :S], max_seq=S + 2)[1]
+              for impl, m in models.items()}
+
+    def step(impl):
+        m = models[impl]
+        m.tracer = Tracer()
+        before = dict(tssm.ssm_step_routes)
+        m.decode_step(caches[impl], S, tokens[:, S:])
+        spans = [sp for sp in m.tracer.spans if sp.name == "ssm.step"]
+        m.tracer = None
+        return ({k: tssm.ssm_step_routes[k] - before[k] for k in before},
+                {sp.args["route"] for sp in spans}, len(spans))
+
+    for impl in ("kernel", "plain"):
+        assert step(impl) == ({"kernel": 0, "plain": L}, {"plain"}, L)
+    launched = []
+
+    def kernel(*args, out=None):
+        launched.append(args[0].shape)
+        return ref.ssd_step_ref(*args, out=out)
+
+    monkeypatch.setattr(ops, "_on_cuda", lambda x: True)
+    monkeypatch.setattr(step_mod, "ssd_step", kernel)
+    assert step("kernel") == ({"kernel": L, "plain": 0}, {"kernel"}, L)
+    assert len(launched) == L
+    assert step("plain") == ({"kernel": 0, "plain": L}, {"plain"}, L)
+    assert len(launched) == L
 
 
 # ---------------------------------------------------------------------------
@@ -622,3 +736,87 @@ def test_attention_hd112_matches_plain_on_gpu(dtype):
         want = ref.decode_attention_ref(q[:, :1], k, v, cl)
         np.testing.assert_allclose(got.float().cpu().numpy(),
                                    want.float().cpu().numpy(), **tol)
+
+
+# The SSD decode step's shapes: Granite-4.0-H at the benchmark's batch 32,
+# mamba2-130m and zamba2-7b at chip_smoke's serve batch.
+STEP_SHAPES = [(32, 128, 64, 128), (8, 24, 64, 128), (8, 112, 64, 64)]
+# The kernel against the plain step on the card: the state takes the plain
+# step's roundings (no FMA contraction) but for exp's last bit; y's sum
+# over d_state runs in another order (each lane's four products fused,
+# then a shuffle tree, against the plain product's own order): a few ulp
+# of |y|, which over 64 steps the state's decay keeps from growing.
+STEP_TOL = dict(rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,nh,hd,ds", STEP_SHAPES)
+def test_ssd_step_kernel_matches_plain_on_gpu(B, nh, hd, ds):
+    """One step, then 64 chained steps out of place and in place (the two
+    equal to the bit), against the plain step on the card; over the 64
+    steps the kernel's largest error against the recurrence in float64
+    (y with its skip term, and the final state, each over its largest
+    value) is at most twice the plain fp32 step's."""
+    dev = _cuda()
+    x, dt, A, Bm, Cm, D, s = (t.to(dev) for t in _step_inputs(11, B, nh,
+                                                              hd, ds))
+    n = step_mod.launches
+    got = step_mod.ssd_step(x, dt, A, Bm, Cm, D, s)
+    assert step_mod.launches == n + 1
+    for g, w in zip(got, ref.ssd_step_ref(x, dt, A, Bm, Cm, D, s)):
+        np.testing.assert_allclose(g.cpu().numpy(), w.cpu().numpy(),
+                                   **STEP_TOL)
+    xs, dts, A64, Bs, Cs = (t.to(dev) for t in _model_like_ssd(12, B, 64, nh,
+                                                               hd, ds))
+    rng = np.random.default_rng(13)
+    D64 = torch.from_numpy(1.0 + 0.1 * rng.standard_normal(nh)).to(dev)
+    s64 = torch.from_numpy(0.1 * rng.standard_normal((B, nh, hd, ds))).to(dev)
+    exact_y, exact_s = ref.ssd_ref(xs, dts, A64, Bs, Cs, init_state=s64)
+    exact_y = exact_y + xs * D64[:, None]
+    f32 = [t.float() for t in (xs, dts, A64, Bs, Cs, D64)]
+    states = {way: s64.float() for way in ("plain", "kernel", "in place")}
+    ys = {way: [] for way in states}
+    for t in range(64):
+        args = [a[:, t].contiguous() if a.dim() > 1 else a for a in f32]
+        py, states["plain"] = ref.ssd_step_ref(*args, states["plain"])
+        ky, states["kernel"] = step_mod.ssd_step(*args, states["kernel"])
+        st = states["in place"]
+        iy, new = step_mod.ssd_step(*args, st, out=st)
+        assert new is st
+        assert torch.equal(iy, ky) and torch.equal(st, states["kernel"])
+        for g, w in ((ky, py), (st, states["plain"])):
+            np.testing.assert_allclose(g.cpu().numpy(), w.cpu().numpy(),
+                                       **STEP_TOL)
+        for way, y in (("plain", py), ("kernel", ky), ("in place", iy)):
+            ys[way].append(y)
+
+    def err(way):
+        return max(_rel_err(torch.stack(ys[way], 1).cpu().numpy(),
+                            exact_y.cpu().numpy()),
+                   _rel_err(states[way].cpu().numpy(), exact_s.cpu().numpy()))
+
+    assert err("kernel") <= 2 * err("plain"), (err("kernel"), err("plain"))
+    assert err("in place") == err("kernel")
+
+
+@pytest.mark.gpu
+def test_ssd_step_kernel_in_a_cuda_graph_on_gpu():
+    """The step captured in a CUDA graph, in place on a static state, as
+    graphed decode runs it: each replay equals the eager call on the same
+    state to the bit, and a replay launches nothing through the wrapper."""
+    dev = _cuda()
+    x, dt, A, Bm, Cm, D, s = (t.to(dev) for t in _step_inputs(14, 8, 24, 64,
+                                                              128))
+    want = [step_mod.ssd_step(x, dt, A, Bm, Cm, D, s)]
+    want.append(step_mod.ssd_step(x, dt, A, Bm, Cm, D, want[0][1]))
+    st = s.clone()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        y, _ = step_mod.ssd_step(x, dt, A, Bm, Cm, D, st, out=st)
+    st.copy_(s)
+    n = step_mod.launches
+    for want_y, want_s in want:
+        g.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(y, want_y) and torch.equal(st, want_s)
+    assert step_mod.launches == n

@@ -310,8 +310,8 @@ def test_tracing_on_the_card(toy_root):
                                   plain.generate(p, max_new=6))
     assert traced.decode_mode == "graphed"
     caps = [s for s in tr.spans if s.name == "graphed.capture"]
-    # ``max_batch`` first, then the rest: the card has room for them
-    assert [s.args["B"] for s in caps] == [4, 1, 2, 3]
+    # ``max_batch`` up front, then the batch's own size when it comes
+    assert [s.args["B"] for s in caps] == [4, 3]
     assert sum(s.name == "decode_attention" for s in tr.spans) == 5 * 2
     gen = next(s for s in tr.spans if s.name == "engine.generate")
     assert len(gen.args["token_gaps_ms"]) == 5
