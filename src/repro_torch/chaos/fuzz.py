@@ -148,14 +148,10 @@ def _fleet():
 
 
 def run_case(case: FuzzCase,
-             threshold: float = DEFAULT_THRESHOLD, *,
-             fast: bool = True) -> FuzzResult:
-    """Run one case on the unprotected baseline, deterministically.
-
-    ``fast`` selects the runtime's vectorized event loop; ``fast=False``
-    replays on the legacy oracle loop — the pinned corpus must break
-    identically on both (``tests/test_chaos.py`` parametrizes over it).
-    """
+             threshold: float = DEFAULT_THRESHOLD) -> FuzzResult:
+    """Run one case on the unprotected baseline, deterministically.  The
+    pinned corpus must break as it does on both of the reference's event
+    loops (``tests/test_torch_chaos.py`` parametrizes over them)."""
     from repro_torch.runtime import ClusterRuntime, SimBackend
     graph, cluster, _, planner = _fleet()
     if case.rate_rps not in _PLAN_CACHE:
@@ -166,7 +162,7 @@ def run_case(case: FuzzCase,
         return FuzzResult(case, 0.0, 0, 0, planned=False,
                           _threshold=threshold)
     rt = ClusterRuntime(graph, cfg, SimBackend(), seed=case.seed,
-                        cluster=cluster, fast=fast)
+                        cluster=cluster)
     m = rt.run(case.scenario())
     return FuzzResult(case, m.violation_rate, m.completions, m.dropped,
                       planned=True, _threshold=threshold)

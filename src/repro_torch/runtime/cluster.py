@@ -6,8 +6,10 @@ pluggable :class:`~repro_torch.runtime.backend.ExecutionBackend` that only turns
 (server, batch) into a service time.  Workloads arrive as declarative
 :class:`~repro_torch.runtime.scenario.Scenario` objects.  The legacy
 ``Simulator`` of the JAX package is a thin shim over
-``ClusterRuntime(SimBackend())`` and stays seed-deterministic; this copy
-gives field-exact the same ``SimMetrics``.  The cluster is the port's
+``ClusterRuntime(SimBackend())`` and stays seed-deterministic.  This
+runtime has one event loop, the vectorized one
+(:mod:`repro_torch.runtime.fastloop`), and gives field-exact the
+``SimMetrics`` of both of the reference's loops.  The cluster is the port's
 :class:`~repro_torch.hwspec.ClusterSpec`; transition plans, monitors,
 ladders and hooks are the port's own
 :class:`~repro_torch.reconfig.TransitionPlan`,
@@ -34,7 +36,6 @@ the pre-multi-app behavior.
 """
 from __future__ import annotations
 
-import heapq
 import itertools
 import math
 from dataclasses import dataclass
@@ -43,22 +44,17 @@ from typing import (TYPE_CHECKING, Any, Dict, List, Mapping, Optional,
 
 import numpy as np
 
-from repro_torch.core.dispatch import (QueuedRequest, batch_ready, early_drop,
-                                 next_poll_time)
+from repro_torch.core.dispatch import QueuedRequest
 from repro_torch.core.milp import PlanConfig
 from repro_torch.core.taskgraph import TaskGraph, qualify, split_qualified
 from repro_torch.runtime.backend import ExecutionBackend, SimBackend
+from repro_torch.runtime.fastloop import run_fast
 from repro_torch.runtime.metrics import Server, SimMetrics
 from repro_torch.runtime.scenario import (CapacityEvent, DomainFailureEvent,
                                     FailureEvent, PreemptionEvent, Scenario)
 
 if TYPE_CHECKING:   # pragma: no cover — typing only
     from repro_torch.hwspec import ClusterSpec
-
-# queue sweep cadence while chaos events are in play: dead-task queues
-# get no poll events, so without a periodic scan their requests would
-# never be counted as dropped (accounting hole, not a serving change)
-_CHAOS_SCAN_S = 0.5
 
 __all__ = ["ClusterRuntime", "Server", "SimMetrics"]
 
@@ -88,13 +84,12 @@ class ClusterRuntime:
                  frontend=None, time_base_s: float = 0.0,
                  transition: Optional[Any] = None,
                  cluster: Optional["ClusterSpec"] = None,
-                 monitor=None, ladder=None, hooks=None,
-                 fast: bool = True):
+                 monitor=None, ladder=None, hooks=None):
         self._setup({"": _AppState("", graph, config, frontend)},
                     backend, seed=seed, staleness_ms=staleness_ms,
                     time_base_s=time_base_s, transition=transition,
                     cluster=cluster, monitor=monitor, ladder=ladder,
-                    hooks=hooks, fast=fast)
+                    hooks=hooks)
 
     @classmethod
     def multi(cls, apps: Mapping[str, Tuple[TaskGraph, PlanConfig]],
@@ -104,8 +99,8 @@ class ClusterRuntime:
               time_base_s: float = 0.0,
               transition: Optional[Any] = None,
               cluster: Optional["ClusterSpec"] = None,
-              monitor=None, ladder=None, hooks=None,
-              fast: bool = True) -> "ClusterRuntime":
+              monitor=None, ladder=None, hooks=None
+              ) -> "ClusterRuntime":
         """Serve several co-located apps on one event loop.
 
         ``apps`` maps the (non-empty) app name to that app's graph and
@@ -123,7 +118,7 @@ class ClusterRuntime:
                   backend, seed=seed, staleness_ms=staleness_ms,
                   time_base_s=time_base_s, transition=transition,
                   cluster=cluster, monitor=monitor, ladder=ladder,
-                  hooks=hooks, fast=fast)
+                  hooks=hooks)
         return rt
 
     # ------------------------------------------------------------------
@@ -132,12 +127,8 @@ class ClusterRuntime:
                staleness_ms: float, time_base_s: float,
                transition: Optional[Any] = None,
                cluster: Optional["ClusterSpec"] = None,
-               monitor=None, ladder=None, hooks=None, fast: bool = True):
+               monitor=None, ladder=None, hooks=None):
         self._apps = apps
-        # event-loop selection (DESIGN.md §16): the vectorized calendar
-        # loop (repro_torch.runtime.fastloop) is the default; ``fast=False``
-        # keeps the incumbent per-event loop as the differential oracle
-        self.fast = fast
         # bumped on EVERY fleet mutation (kills, elasticity, transitions,
         # retire sweeps, ladder downshifts via refresh_capacity) so the
         # fast loop's per-queue server mirrors know to rebuild
@@ -593,380 +584,9 @@ class ClusterRuntime:
 
     # ------------------------------------------------------------------
     def run(self, scenario: Scenario) -> SimMetrics:
-        """Serve ``scenario`` to completion.  Dispatches to the
-        vectorized event-calendar loop (``repro_torch.runtime.fastloop``,
-        DESIGN.md §16) unless the runtime was built with ``fast=False``,
-        which keeps the incumbent per-event loop as the differential
-        oracle — both produce field-exact-identical SimMetrics."""
-        if self.fast:
-            from repro_torch.runtime.fastloop import run_fast
-            return run_fast(self, scenario)
-        return self._run_legacy(scenario)
-
-    def _run_legacy(self, scenario: Scenario) -> SimMetrics:
-        m = SimMetrics()
-        hooks = self.hooks
-        # transition windows (constructor plan starts at t=0; scheduled
-        # TransitionEvents open theirs when they fire) — requests
-        # ARRIVING inside any window are additionally filed under the
-        # ``m.window`` ledger so the reconfiguration cost stays visible
-        windows: List[Tuple[float, float]] = []
-        if self._transition is not None:
-            windows.append((0.0, self._transition.makespan_s))
-        if (self._transition is not None or scenario.transitions
-                or self._monitor is not None):
-            # a monitor may open emergency-transition windows mid-run
-            m.window = SimMetrics()
-
-        def in_window(t: float) -> bool:
-            return any(a <= t < b for a, b in windows)
-
-        # per-domain attainment: domain name -> failure time; requests
-        # ARRIVING after it are additionally filed under m.domain(name)
-        domain_open: Dict[str, float] = {}
-
-        ids = self._ids
-        seq = itertools.count()
-        events: List[Tuple[float, int, str, object]] = []
-        duration_s, warmup_s = scenario.duration_s, scenario.warmup_s
-        # per-app deadline/drain allowance (each app keeps its own SLO)
-        slo_s = {name: st.graph.slo_latency_ms / 1e3 * scenario.slo_scale
-                 for name, st in self._apps.items()}
-        # drain horizon: in-flight work may finish past duration_s; +10 s
-        # is the legacy allowance, widened when scaled SLOs exceed it
-        drain_s = duration_s + max(10.0, 2.0 * max(slo_s.values()))
-        root_t = self._root_t
-
-        def push(t, kind, payload):
-            heapq.heappush(events, (t, next(seq), kind, payload))
-
-        def sub(app: str) -> SimMetrics:
-            """Per-app metrics bucket (the aggregate itself for the
-            single-app legacy runtime)."""
-            return m if app == "" else m.app(app)
-
-        # -- arrivals: one independent process per app ------------------
-        if scenario.apps:
-            missing = [a.app for a in scenario.apps
-                       if a.app not in self._apps]
-            if missing:
-                raise ValueError(f"scenario names unknown apps {missing} "
-                                 f"(runtime has {list(self._apps)})")
-            workloads = [(a.app, a.arrivals) for a in scenario.apps]
-        else:
-            if self._single is None:
-                raise ValueError("multi-app runtime needs Scenario.multi "
-                                 "(per-app arrival processes)")
-            workloads = [("", scenario.arrivals)]
-        for app, proc in workloads:
-            st = self._apps[app]
-            entry_q = qualify(app, st.graph.entry)
-            for t in proc.times(self.rng, duration_s):
-                if t > drain_s:
-                    # past the drain horizon the loop never processes it —
-                    # an idle arrival process can overshoot by ~1e9 s,
-                    # which would otherwise blow up the demand bins
-                    break
-                if st.frontend is not None:
-                    meta = st.frontend.submit(self.time_base_s + t)
-                    deadline = t + (meta.deadline_s
-                                    - (self.time_base_s + t)
-                                    ) * scenario.slo_scale
-                    # per-app frontends stamp independent id streams; the
-                    # runtime-global id keeps root bookkeeping collision-
-                    # free across apps (single-app: frontend id, legacy)
-                    rid = meta.req_id if self._single is not None \
-                        else next(ids)
-                else:
-                    rid = next(ids)
-                    deadline = t + slo_s[app]
-                root_t[rid] = t
-                push(t, "arrive",
-                     QueuedRequest(rid, rid, entry_q, t, deadline))
-        for ev in scenario.failures:
-            push(ev.at_s, "fail", ev)
-        for ev in scenario.capacity:
-            push(ev.at_s, "capacity", ev)
-        for ev in scenario.transitions:
-            push(ev.at_s, "transition", ev.plan)
-        for ev in scenario.domain_failures:
-            push(ev.at_s, "domain_fail", ev)
-        for ev in scenario.preemptions:
-            push(ev.at_s, "preempt", ev)
-        chaos_events = scenario.domain_failures or scenario.preemptions \
-            or any(f.pool is not None for f in scenario.failures)
-        if chaos_events:
-            # periodic queue sweeps from the first chaos event on: a
-            # task with no live servers gets no poll events, so its
-            # queued requests would otherwise never be counted dropped
-            t0 = min(e.at_s for e in (scenario.domain_failures
-                                      + scenario.preemptions
-                                      + scenario.failures))
-            t_scan = t0 + _CHAOS_SCAN_S
-            while t_scan <= drain_s:
-                push(t_scan, "chaos_scan", None)
-                t_scan += _CHAOS_SCAN_S
-        if self._monitor is not None:
-            begin = getattr(self._monitor, "begin_run", None)
-            if begin is not None:
-                begin(self)
-            interval = float(getattr(self._monitor, "interval_s", 0.5))
-            t_mon = interval
-            while t_mon <= duration_s:
-                push(t_mon, "mon", None)
-                t_mon += interval
-        if self._transition is not None:
-            # sweep each drain wave out once its hand-over passes — an
-            # idle drained stream gets no 'done' event to retire it
-            for t_r in sorted({a.retire_s
-                               for a in self._transition.drains}):
-                push(t_r, "retire_sweep", None)
-        for qt, q in self.queues.items():
-            if q:                   # leftover work from a prior run
-                push(0.0, "poll", qt)
-
-        def account_drop(app: str, task: str, g, rt0: float, reason: str,
-                         root_id: int = -1):
-            """File one request's fan-weighted drop into every ledger it
-            belongs to (aggregate, per-app, transition window, failed
-            domains), attributed to ``reason``."""
-            in_main = rt0 >= warmup_s
-            in_win = m.window is not None and in_window(rt0)
-            doms = [d for d, tf in domain_open.items() if rt0 >= tf]
-            if not (in_main or in_win or doms):
-                return
-            fan = max(1, round(sum(
-                g.factor(task, g.tasks[task].most_accurate.name, t2)
-                for t2 in g.successors(task)) or 1))
-            if in_main:
-                m.count_drop(fan, reason)
-                if app:
-                    sub(app).count_drop(fan, reason)
-                if hooks is not None:
-                    hooks.on_drop(app, task, reason, fan, rt0,
-                                  root_id=root_id)
-            if in_win:
-                m.window.count_drop(fan, reason)
-            for d in doms:
-                m.domain(d).count_drop(fan, reason)
-
-        def drop_scan(qt: str, now: float):
-            """Early-drop pass over one (app, task) queue (paper §3.3)."""
-            app, task = split_qualified(qt)
-            g = self._apps[app].graph
-            q = self.queues[qt]
-            keep = []
-            fastest = self._fastest[qt]
-            timeout = self._timeout[qt]
-            lossy = qt in self.lost_capacity
-            for req in q:
-                reason = early_drop(req, now, fastest, self.staleness_ms,
-                                    timeout)
-                if reason is None:
-                    keep.append(req)
-                else:
-                    # attribution: a task that lost streams to a kill or
-                    # preemption drops because capacity failed, not
-                    # because the request was inherently unserviceable
-                    rkey = ("failed_capacity" if lossy
-                            else "deadline"
-                            if reason == "deadline_unreachable" else reason)
-                    account_drop(app, task, g, root_t[req.root_id], rkey,
-                                 root_id=req.root_id)
-            self.queues[qt] = keep
-
-        def try_dispatch(qt: str, now: float):
-            drop_scan(qt, now)
-            q = self.queues[qt]
-            while q:
-                # a drained (retired) stream takes no NEW batches; an
-                # incoming stream's warm-up is its initial busy_until
-                # (.get: a chaos kill may have emptied the task's fleet)
-                idle = [s for s in self.by_task.get(qt, [])
-                        if s.busy_until <= now + 1e-12
-                        and s.retire_at > now + 1e-12]
-                if not idle:
-                    break
-                head_wait = (now - q[0].enqueue_t) * 1e3
-                # pick the idle server that can drain the most
-                srv = max(idle, key=lambda s: s.tup.batch)
-                if not batch_ready(len(q), srv.tup.batch, head_wait,
-                                   self._timeout[qt]):
-                    break
-                if len(q) < srv.tup.batch:
-                    # partial launch on the smallest-batch idle server
-                    srv = min(idle, key=lambda s: s.tup.batch)
-                batch = q[: srv.tup.batch]
-                del q[: srv.tup.batch]
-                service = self.backend.service_s(srv, batch, now, self.rng)
-                srv.busy_until = now + service
-                if hooks is not None:
-                    hooks.on_dispatch(srv, batch, now, service, len(q))
-                push(srv.busy_until, "done", (srv.idx, batch))
-            if q:
-                # retired streams must not feed the poll clock: their
-                # stale busy_until would pin min-busy in the past and
-                # the queue could stall until the next arrival
-                alive = [s for s in self.by_task.get(qt, [])
-                         if s.retire_at > now + 1e-12]
-                if not alive:
-                    return
-                t_poll = next_poll_time(
-                    q[0].enqueue_t, self._timeout[qt],
-                    min(s.busy_until for s in alive))
-                if t_poll > now + 1e-9:
-                    push(t_poll, "poll", qt)
-
-        srv_by_idx = {s.idx: s for s in self.servers}
-
-        while events:
-            now, _, kind, payload = heapq.heappop(events)
-            if now > drain_s:
-                break
-            if kind == "arrive":
-                req = payload
-                if self._ladder is not None:
-                    shed = self._ladder.gate(self, req.task, now, req=req)
-                    if shed is not None:
-                        app0, task0 = split_qualified(req.task)
-                        account_drop(app0, task0,
-                                     self._apps[app0].graph,
-                                     root_t[req.root_id], shed,
-                                     root_id=req.root_id)
-                        continue
-                req.enqueue_t = now
-                self.queues[req.task].append(req)
-                if hooks is not None:
-                    app0, task0 = split_qualified(req.task)
-                    hooks.on_arrival(app0, task0, now,
-                                     len(self.queues[req.task]))
-                try_dispatch(req.task, now)
-            elif kind == "poll":
-                try_dispatch(payload, now)
-            elif kind == "mon":
-                plan = self._monitor.check(self, now, m)
-                if plan is not None:
-                    # emergency re-plan executes exactly like a scheduled
-                    # TransitionEvent: live drains/loads + its own window
-                    self.apply_transition(plan, now)
-                    windows.append((now, now + plan.makespan_s))
-                    for a in plan.drains:
-                        push(now + a.retire_s, "retire_sweep", None)
-                    if hooks is not None:
-                        hooks.on_transition(now, plan.makespan_s,
-                                            emergency=True, plan=plan)
-                if hooks is not None:
-                    if self._ladder is not None:
-                        hooks.on_ladder_level(self._ladder.level)
-                    hooks.on_dead_units(self.dead_units())
-                srv_by_idx = {s.idx: s for s in self.servers}
-                for qt2 in self.queues:
-                    try_dispatch(qt2, now)
-            elif kind in ("fail", "capacity", "transition", "retire_sweep",
-                          "domain_fail", "preempt", "chaos_scan"):
-                if kind == "fail":
-                    self._apply_failure(payload)
-                elif kind == "capacity":
-                    self._apply_capacity(payload, now)
-                elif kind == "transition":
-                    self.apply_transition(payload, now)
-                    windows.append((now, now + payload.makespan_s))
-                    for a in payload.drains:
-                        push(now + a.retire_s, "retire_sweep", None)
-                    if hooks is not None:
-                        hooks.on_transition(now, payload.makespan_s,
-                                            emergency=False, plan=payload)
-                elif kind == "domain_fail":
-                    self._apply_domain_failure(payload)
-                    domain_open.setdefault(payload.domain, now)
-                elif kind == "preempt":
-                    self._apply_preemption(payload, now, push)
-                elif kind == "chaos_scan":
-                    pass        # the shared try_dispatch pass below
-                else:
-                    self._sweep_retired(now)
-                srv_by_idx = {s.idx: s for s in self.servers}
-                for qt2 in self.queues:
-                    try_dispatch(qt2, now)
-            elif kind == "done":
-                idx, batch = payload
-                srv = srv_by_idx.get(idx)
-                if srv is None:
-                    continue
-                app, g = srv.app, self._apps[srv.app].graph
-                task, variant = srv.tup.task, srv.tup.variant
-                # qualified names are loop-invariant per batch — build
-                # them once, not per serviced request (hot loop)
-                qt_task = qualify(app, task)
-                agg_key = (qt_task, variant)
-                succ_q = [(t2, qualify(app, t2))
-                          for t2 in g.successors(task)]
-                for req in batch:
-                    srv.served += 1
-                    if srv.degraded:
-                        m.degraded_served += 1
-                        if app:
-                            sub(app).degraded_served += 1
-                    m.traffic[agg_key] = m.traffic.get(agg_key, 0) + 1
-                    if app:
-                        ms = sub(app)
-                        ms.traffic[(task, variant)] = \
-                            ms.traffic.get((task, variant), 0) + 1
-                    if not succ_q:
-                        rt0 = root_t[req.root_id]
-                        in_win = m.window is not None and in_window(rt0)
-                        doms = tuple(m.domain(d)
-                                     for d, tf in domain_open.items()
-                                     if rt0 >= tf)
-                        if rt0 >= warmup_s or in_win or doms:
-                            lat = (now - rt0) * 1e3
-                            missed = now > req.deadline + 1e-9
-                            sinks = (((m,) if app == ""
-                                      else (m, sub(app)))
-                                     if rt0 >= warmup_s else ())
-                            for mm in (sinks + ((m.window,) if in_win
-                                                else ()) + doms):
-                                mm.latencies_ms.append(lat)
-                                mm.completions += 1
-                                if missed:
-                                    mm.missed += 1
-                            if sinks and hooks is not None:
-                                hooks.on_complete(app, req.root_id,
-                                                  lat, missed, now)
-                        continue
-                    for t2, qt2 in succ_q:
-                        fan = self._sample_fanout(g.factor(task, variant,
-                                                           t2))
-                        for _ in range(fan):
-                            child = QueuedRequest(
-                                next(ids), req.root_id, qt2,
-                                now, req.deadline, req.path_done + (task,))
-                            self.queues[qt2].append(child)
-                    for _, qt2 in succ_q:
-                        try_dispatch(qt2, now)
-                if srv.retire_at <= now + 1e-12:
-                    # drained stream went idle past its hand-over point:
-                    # its in-flight batch just completed — retire it
-                    self._sweep_retired(now)
-                    del srv_by_idx[idx]
-                try_dispatch(qt_task, now)
-        # summed span of the UNION of windows (overlaps merged)
-        span, end = 0.0, -math.inf
-        for a, b in sorted(windows):
-            span += max(0.0, b - max(a, end))
-            end = max(end, b)
-        m.transition_window_s = span
-        for name, st in self._apps.items():
-            if st.frontend is not None:
-                # report the exact datapath outcome (fan-weighted, leaf-
-                # level — identical accounting to SimMetrics.violation_
-                # rate) into each app's own re-plan trigger window
-                ms = sub(name)
-                st.frontend.record_bin_outcome(ms.total_requests,
-                                               ms.violations)
-        return m
-
-    # ------------------------------------------------------------------
-    def _sample_fanout(self, f: float) -> int:
-        base = int(math.floor(f))
-        return base + (1 if self.rng.random() < (f - base) else 0)
+        """Serve ``scenario`` to completion on the vectorized
+        event-calendar loop (``repro_torch.runtime.fastloop``, DESIGN.md
+        §16): field-exact the ``SimMetrics`` of the reference's
+        ``repro.runtime`` loops, its per-event one and its vectorized
+        one."""
+        return run_fast(self, scenario)

@@ -1,12 +1,13 @@
 """The vectorized event-calendar loop (DESIGN.md §16).
 
-``run_fast`` is the default data plane behind
+``run_fast`` is the port's one event loop, behind
 :meth:`repro_torch.runtime.cluster.ClusterRuntime.run`.  It produces
 field-exact-identical :class:`~repro_torch.runtime.metrics.SimMetrics` to the
-incumbent per-event loop (``fast=False``, the differential oracle) —
+per-event loop of the reference's ``repro.runtime.ClusterRuntime``
+("the legacy loop" below, the differential oracle) —
 same RNG draw ordering (arrival processes, SimBackend service draws,
-``_sample_fanout`` coins), same event ordering, same hook call sequence
-— while processing events several times faster:
+fan-out coins), same event ordering, same hook call sequence — while
+processing events several times faster:
 
 * **Arrival calendar**: every arrival is generated once into a
   struct-of-arrays numpy calendar (times, seqs, ids, deadlines, entry
@@ -60,6 +61,10 @@ if TYPE_CHECKING:   # pragma: no cover — typing only
 __all__ = ["run_fast"]
 
 _INF = math.inf
+# queue sweep cadence while chaos events are in play: dead-task queues
+# get no poll events, so without a periodic scan their requests would
+# never be counted as dropped (accounting hole, not a serving change)
+_CHAOS_SCAN_S = 0.5
 
 
 class _TaskQueue:
@@ -143,7 +148,8 @@ class _TaskQueue:
 def run_fast(rt: "ClusterRuntime", scenario: "Scenario") -> SimMetrics:
     """Serve ``scenario`` on ``rt`` with the event-calendar loop.
 
-    Field-exact parity contract with ``ClusterRuntime._run_legacy``:
+    Field-exact parity contract with the per-event loop of the
+    reference's ``repro.runtime.ClusterRuntime``:
     identical SimMetrics (including latency append order), identical
     RNG draw order, identical hook call sequence.
     """
@@ -530,7 +536,6 @@ def run_fast(rt: "ClusterRuntime", scenario: "Scenario") -> SimMetrics:
         chaos_events = scenario.domain_failures or scenario.preemptions \
             or any(f.pool is not None for f in scenario.failures)
         if chaos_events:
-            from repro_torch.runtime.cluster import _CHAOS_SCAN_S
             t0 = min(e.at_s for e in (scenario.domain_failures
                                       + scenario.preemptions
                                       + scenario.failures))

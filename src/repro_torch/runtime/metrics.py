@@ -132,8 +132,9 @@ def diff_metrics(a: Any, b: Any, path: str = "metrics") -> List[str]:
 
     This is the shared differential oracle: the determinism sanitizer
     (``tools.analyze.sanitize_determinism``) uses it to compare seeded
-    replays, and the runtime parity suite (``tests/test_runtime_parity``)
-    uses it to compare the vectorized event loop against the legacy one.
+    replays, and the port's runtime tests (``tests/test_torch_runtime``)
+    use it to hold the port's event loop against both of the reference's
+    ``repro.runtime`` loops, the vectorized one and the per-event one.
     """
     out: List[str] = []
     if a is None or b is None:

@@ -35,11 +35,13 @@ it.  ``engine.generate``'s args carry
 ``token_gaps_ms`` (between consecutive tokens' ``argmax``): on a card from
 CUDA events read after the batch's own final copy, so tracing adds no
 synchronisation; elsewhere from the host clock, the device being the
-host.  Without a tracer each call site pays one ``is not None`` test and
-no event is created.
+host.  A decode step's body is written once: without a tracer its spans
+are null contexts (``Engine._span``), so the traced step runs the same
+lines as the untraced one, and no event is created.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 from typing import TYPE_CHECKING, List, Optional, Tuple
@@ -94,6 +96,12 @@ class Engine:
                                           self.cfg.max_seq, self.tracer)
             self._graphed.capture_max_batch()
         return self._graphed
+
+    def _span(self, name: str, **args):
+        """A span of the engine's tracer, or nothing."""
+        if self.tracer is None:
+            return contextlib.nullcontext()
+        return self.tracer.span(name, "engine", **args)
 
     def prefill(self, tokens: torch.Tensor
                 ) -> Tuple[torch.Tensor, kvcache.Cache]:
@@ -155,7 +163,6 @@ class Engine:
                   eos_id: Optional[int],
                   marks: Optional["_TokenMarks"]) -> np.ndarray:
         B, S = prompts.shape
-        tr = None if marks is None else self.tracer
         tokens = torch.as_tensor(np.asarray(prompts, np.int64),
                                  device=self.model.device)
         logits, cache = self.prefill(tokens)
@@ -176,23 +183,16 @@ class Engine:
                 steps.append(tok)
             if i == max_new - 1:
                 break
-            if tr is None:
-                logits, cache = self.decode_step(cache, S + i, tok)
-                tok = whole(logits[:, -1].argmax(-1, keepdim=True))
-                continue
-            with tr.span("engine.decode_step", "engine", step=i) as span:
+            with self._span("engine.decode_step", step=i) as span:
                 cpu0 = time.thread_time_ns()
                 logits, cache = self.decode_step(cache, S + i, tok)
                 tok = whole(logits[:, -1].argmax(-1, keepdim=True))
-                marks.mark()
-                span.args["cpu_s"] = (time.thread_time_ns() - cpu0) * 1e-9
+                if marks is not None:
+                    marks.mark()
+                    span.args["cpu_s"] = (time.thread_time_ns() - cpu0) * 1e-9
         if steps:
-            if tr is None:
+            with self._span("engine.to_host"):
                 out[:, :len(steps)] = torch.cat(steps, dim=1).cpu().numpy()
-            else:
-                with tr.span("engine.to_host", "engine"):
-                    out[:, :len(steps)] = torch.cat(steps,
-                                                    dim=1).cpu().numpy()
         return out
 
 

@@ -3,14 +3,15 @@ package's ``repro.chaos``.
 
 Every pinned case of ``tests/chaos_pins.json`` (read, never written)
 derives the same ``FuzzCase`` from its seed in both packages and gives
-the same ``run_case`` result on both event loops; ``fuzz`` and the
-``--update-pins`` CLI write the same pins.  On a domain-failure storm the
-port's runtime, carrying the port's emergency re-planner, degradation
-ladder and hooks, gives ``SimMetrics`` field-exact to the JAX runtime
-carrying the JAX ones, in both loops, and the failure detector, the ladder
-and the monitor end in the same state.  The fuzzer's planners, and every
-other here, bind by their node budget: the reference's 3 s wall-clock
-budget is raised to 120 s in both packages for these tests.
+the same ``run_case`` result as on both of the reference's event loops;
+``fuzz`` and the ``--update-pins`` CLI write the same pins.  On a
+domain-failure storm the port's runtime, carrying the port's emergency
+re-planner, degradation ladder and hooks, gives ``SimMetrics`` field-exact
+to the JAX runtime carrying the JAX ones on either of its loops, and the
+failure detector, the ladder and the monitor end in the same state.  The
+fuzzer's planners, and every other here, bind by their node budget: the
+reference's 3 s wall-clock budget is raised to 120 s in both packages for
+these tests.
 """
 import json
 import os
@@ -90,7 +91,7 @@ def test_pinned_corpus_matches_jax(fuzzers, pins, fast):
         assert case.case_id == cid, "pin drifted from its seed"
         want = jf.run_case(jf.case_from_seed(meta["seed"]),
                            pins["threshold"], fast=fast)
-        got = pf.run_case(case, pins["threshold"], fast=fast)
+        got = pf.run_case(case, pins["threshold"])
         assert _result(got) == _result(want), cid
         breaking += got.breaking
     assert breaking >= 3
@@ -112,11 +113,12 @@ def test_fuzz_cli_writes_the_same_pins(fuzzers, tmp_path, capsys):
         str(tmp_path / "none.json"))
 
 
-def _storm(pkg: str, fast: bool):
+def _storm(pkg: str, fast: bool = True):
     """social_media planned for 30 rps on the chaos cluster, driven at 40
     rps for 12 s with rack r0 killed at 3 s, carrying an emergency
     re-planner, a degradation ladder and hooks of package ``pkg``; the
-    detector observes the finished run."""
+    detector observes the finished run.  ``fast`` picks the reference's
+    event loop; the port has one."""
     if pkg == "jax":
         mod, chaos, obs = jrt, jchaos, jobs
         F, Pl, Pr, TP = Frontend, Planner, Profiler, TransitionPlanner
@@ -133,9 +135,10 @@ def _storm(pkg: str, fast: bool):
                              stickiness=0.05, **KW),
         reconfig=TP(cluster, graph), planned_for_rps=30.0, hooks=hooks)
     ladder = chaos.DegradationLadder(profiler=prof)
+    loop = {"fast": fast} if pkg == "jax" else {}
     rt = mod.ClusterRuntime(graph, cfg, mod.SimBackend(), seed=0,
                             cluster=cluster, monitor=mon, ladder=ladder,
-                            hooks=hooks, fast=fast)
+                            hooks=hooks, **loop)
     m = rt.run(mod.Scenario.poisson(40.0, duration_s=12.0,
                                     warmup_s=1.0).with_chaos(
         mod.DomainFailureEvent(at_s=3.0, domain="r0")))
@@ -147,7 +150,7 @@ def _storm(pkg: str, fast: bool):
 @pytest.mark.parametrize("fast", [True, False], ids=["fast", "legacy"])
 def test_domain_failure_storm_matches_jax(fast):
     wm, wrt, wmon, wlad, wdet, wh = _storm("jax", fast)
-    gm, grt, gmon, glad, gdet, gh = _storm("port", fast)
+    gm, grt, gmon, glad, gdet, gh = _storm("port")
     assert not diff_metrics(wm, gm)
     assert gm.by_domain["r0"].total_requests > 0
     assert grt.dead_units() == wrt.dead_units() == {"v5e": 4, "spot": 7}

@@ -5,7 +5,8 @@ On the CPU the segments run eagerly: each step must give exactly the
 logits and caches of ``Model.decode_step`` (the same ops in the same
 order), for every dense arch and for batch sizes that come and go, and
 for a tiny Granite-4.0-H (``hybrid_moe``: segments split at its attention
-layers, Mamba2 states in static buffers, its prefill written into them).  On a
+layers, Mamba2 states in static buffers, its prefill written into them).
+The graphs a batch size would capture are counted on the CPU too.  On a
 card (``gpu`` marker) the segments replay as CUDA graphs: the engine's
 tokens equal eager decoding's, in fp32 and in bf16, and every step still
 calls the decode kernel's wrapper once per layer.  Also on the card, the
@@ -118,6 +119,22 @@ def test_hybrid_moe_segments_equal_decode_step_on_cpu(monkeypatch):
     assert sorted(set(in_place)) == [(False, False), (True, True)]
     assert in_place.count((True, True)) == in_place.count((False, False)) \
         == 2 * extra * n_ssm
+
+
+@pytest.mark.parametrize("name", DENSE + ["granite-tiny"])
+def test_capture_layout(name):
+    """The graphs a batch size captures: a dense model one a segment, its
+    layers + 1; the tiny Granite-4.0-H (mamba, attention, mamba) one a
+    piece of each segment that holds a Mamba2 layer: start, mamba, end
+    twice, 6."""
+    if name == "granite-tiny":
+        import _granite_tiny as tiny
+        m, want = tiny.model_and_weights(5)[0], 6
+    else:
+        m = _model(name)
+        want = m.arch.num_layers + 1
+    dec = GraphedDecode(m, max_batch=2, max_seq=16)
+    assert dec._batch(2).n_graphs == want
 
 
 @pytest.mark.gpu

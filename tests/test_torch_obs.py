@@ -7,7 +7,8 @@ transitions), with re-plan and gateway calls added, is replayed into an
 ``Instrumentation`` of each package: the exposition text, the structured
 snapshot, the Chrome trace, the audit log and the SLO plane's ledgers and
 alerts must be equal.  The storm then runs on each package's own runtime,
-monitor and SLO plane, in both event loops, with the ledgers, alerts and
+monitor and SLO plane (the reference's in both of its event loops), with
+the ledgers, alerts and
 ``SimMetrics`` equal.
 """
 import pytest
@@ -53,10 +54,11 @@ class _Recorder:
 
 
 def _storm(mod, chaos, F, Pl, Pr, TP, cluster, graph, hooks, *,
-           fast=True, slo_monitor=None):
+           loop=None, slo_monitor=None):
     """social_media planned for 30 rps on the chaos cluster, driven at 40
     rps for 12 s with rack r0 killed at 3 s, an emergency re-planner and
-    a degradation ladder attached, in package ``mod``."""
+    a degradation ladder attached, in package ``mod``; ``loop`` holds the
+    reference's choice of event loop (the port has one)."""
     prof = Pr(graph, cluster=cluster)
     cfg = Pl(graph, prof, s_avail=cluster.total_units, **KW).plan(30.0)
     mon = chaos.EmergencyReplanner(
@@ -67,7 +69,7 @@ def _storm(mod, chaos, F, Pl, Pr, TP, cluster, graph, hooks, *,
     rt = mod.ClusterRuntime(graph, cfg, mod.SimBackend(), seed=0,
                             cluster=cluster, monitor=monitor,
                             ladder=chaos.DegradationLadder(profiler=prof),
-                            hooks=hooks, fast=fast)
+                            hooks=hooks, **(loop or {}))
     storm = mod.Scenario.poisson(40.0, duration_s=12.0,
                                  warmup_s=1.0).with_chaos(
         mod.DomainFailureEvent(at_s=3.0, domain="r0"))
@@ -150,7 +152,8 @@ def test_storm_slo_plane_matches_jax(fast):
              papps.get_app("social_media"))):
         hooks = obs.Instrumentation(slo=obs.SloPlane(), audit=obs.AuditLog())
         m, mon = _storm(mod, chaos, F, Pl, Pr, TP, cluster, graph, hooks,
-                        fast=fast, slo_monitor=lambda inner: obs.SloMonitor(
+                        loop={"fast": fast} if mod is jrt else None,
+                        slo_monitor=lambda inner: obs.SloMonitor(
                             hooks.slo, interval_s=0.5, inner=inner))
         out.append((m, mon, hooks))
     (wm, wmon, wh), (gm, gmon, gh) = out

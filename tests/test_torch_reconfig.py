@@ -10,7 +10,8 @@ H100 (the port's ``h100_cluster(1)``; the JAX package is handed the same
 pool as its own types, since it has no H100 preset).  The port's runtime
 then executes the port's transition plans, at its constructor and as a
 ``TransitionEvent`` mid-run, field-exact against the JAX runtime on the
-JAX plans, in both event loops.  Planners bind by their node budget.
+JAX plans, in both of the JAX runtime's event loops.  Planners bind by
+their node budget.
 """
 import dataclasses
 
@@ -201,8 +202,8 @@ def _one_task_graph(port: bool = False):
 def test_runtime_executes_transitions_like_jax(chaos_plans, fast, how):
     """The port's runtime runs the port's staged transition (at t=0 on a
     fresh fleet, or as a TransitionEvent on a running one) field-exact
-    against the JAX runtime running the JAX plan, with the transition
-    window's own ledger."""
+    against the JAX runtime running the JAX plan on the loop that ``fast``
+    names, with the transition window's own ledger."""
     (cl, g, lo, hi), (pcl, pg, plo, phi) = chaos_plans
     tr = TransitionPlanner(cl, g).plan(lo, hi)
     ptr = PTransitionPlanner(pcl, pg).plan(plo, phi)
@@ -211,13 +212,14 @@ def test_runtime_executes_transitions_like_jax(chaos_plans, fast, how):
                                             (prt, pg, plo, phi, ptr, pcl)):
         sc = mod.Scenario.step_change(10.0, 40.0, duration_s=10.0,
                                       warmup_s=0.0, switch_frac=0.4)
+        loop = {"fast": fast} if mod is jrt else {}     # the port has one
         if how == "constructor":
             rt = mod.ClusterRuntime(graph, b, mod.SimBackend(), seed=2,
                                     cluster=cluster, transition=plan,
-                                    fast=fast)
+                                    **loop)
         else:
             rt = mod.ClusterRuntime(graph, a, mod.SimBackend(), seed=2,
-                                    cluster=cluster, fast=fast)
+                                    cluster=cluster, **loop)
             sc = sc.with_transitions(mod.TransitionEvent(at_s=4.0,
                                                          plan=plan))
         runs.append((rt.run(sc), rt))

@@ -3,7 +3,8 @@
 ``repro_torch.runtime.ClusterRuntime`` (with its copies of ``core`` and the
 names it reads of ``hwspec``) must give ``SimMetrics`` field-exact to
 ``repro.runtime.ClusterRuntime`` on the same graph, plan, scenario and
-seed, in both event loops: the same completions, drops and drop reasons,
+seed, the port's one event loop against both of the reference's (the
+``fast`` and ``legacy`` cases): the same completions, drops and drop reasons,
 the same latency list in the same order, the same per-app and per-domain
 ledgers.  The copied app graphs are held field by field against the
 originals, and the port's ``EngineBackend`` drives the port's runtime on
@@ -118,7 +119,7 @@ def test_cluster_runtime_matches_jax(fleet, name, fast):
                               cluster=cluster, fast=fast).run(
         _scenario(jrt, name))
     got = prt.ClusterRuntime(pgraph, pcfg, prt.SimBackend(), seed=0,
-                             cluster=pcluster, fast=fast).run(
+                             cluster=pcluster).run(
         _scenario(prt, name))
     _assert_same(want, got, f"{name} ({'fast' if fast else 'legacy'})")
     if name == "domain_failure":
@@ -136,8 +137,8 @@ def test_multi_app_matches_jax(fast):
                                     fast=fast).run(jrt.Scenario.multi(
         {n: jrt.PoissonArrivals(15.0) for n in apps},
         duration_s=6.0, warmup_s=1.0))
-    got = prt.ClusterRuntime.multi(papps, prt.SimBackend(), seed=1,
-                                   fast=fast).run(prt.Scenario.multi(
+    got = prt.ClusterRuntime.multi(papps, prt.SimBackend(), seed=1
+                                   ).run(prt.Scenario.multi(
         {n: prt.PoissonArrivals(15.0) for n in papps},
         duration_s=6.0, warmup_s=1.0))
     _assert_same(want, got, "multi-app")
