@@ -46,6 +46,14 @@ Phases, each printing one JSON line; any failure exits non-zero:
               mamba2-130m's and zamba2-7b's serve batch, out of place and
               in place against the plain step, timed in place against its
               bytes bound and the plain step writing a second buffer.
+3b. norm   -- the RMSNorm kernel (rms_norm.cu) against ref.rms_norm_ref on
+              the card, bf16 out, within one bf16 ulp, one launch a call:
+              qwen2-7b's and Granite-4.0-H's decode rows (32 x 3584, 32 x
+              4096), a Granite prefill (32 x 1024 rows of 4096), Granite's
+              gate over all 8192 channels and a per-head (64) gate, both
+              from fp32 rows and a bf16 gate as the SSD hands them, and at
+              1, 3 and 33 rows; each serving shape timed (L2 flushed)
+              against its bytes bound, beside the plain chain's time.
 4. model   -- full-width qwen2-7b and zamba2-7b in bf16 (random weights
               from a seeded generator): a prefill through the kernels with
               every kernel call also held against its plain version on the
@@ -66,9 +74,11 @@ Phases, each printing one JSON line; any failure exits non-zero:
               before each and checked just after: one flash launch per
               attention application per prefill, one decode launch per
               application per decode step, one SSD launch per Mamba2 layer
-              per prefill (qwen2 28/420/0, zamba2 14/210/81, mamba2 0/0/24)
-              and one SSD-step launch per Mamba2 layer per decode step
-              (zamba2 1,215, mamba2 360).
+              per prefill (qwen2 28/420/0, zamba2 14/210/81, mamba2 0/0/24),
+              one SSD-step launch per Mamba2 layer per decode step
+              (zamba2 1,215, mamba2 360), and every norm of each eager
+              pass (qwen2 57: its graphed steps replay theirs; zamba2
+              3,056, mamba2 784).
 6. profile -- for each served model, the engine's prefill and decode-step
               times at the serve batch's padded shape on the host clock,
               then under
@@ -124,7 +134,8 @@ Phases, each printing one JSON line; any failure exits non-zero:
               printed beside the measured services before and after the
               fit; the deadline scale is fixed from the measured services
               (max(4, 3 x the longest path / SLO)); then the port's Planner
-              plans social_media at 4 rps on one MIG-carved H100
+              plans social_media, every variant at the served lengths
+              (prompt 256, 16 new tokens), at 4 rps on one MIG-carved H100
               (h100_cluster(1)), and fails if there is no plan or its
               MigSlicePacker does not pack it; the plan for four cards at
               40 rps is printed beside it.
@@ -1065,6 +1076,97 @@ def phase_kernels(torch, card) -> list:
     return rows
 
 
+NORM_EPS = 1e-6
+# (tag, rows, d, group): qwen2-7b's and Granite-4.0-H's decode rows at the
+# benchmark's batch 32, a Granite prefill of 32 x 1024 rows, Granite's gated
+# norm over all 8192 channels and a per-head (64) gate as mamba2's and
+# zamba2's; a group means a gate (fp32 rows, bf16 gate)
+NORM_SHAPES = (("qwen2-7b decode", 32, 3584, None),
+               ("granite-4.0-h decode", 32, 4096, None),
+               ("granite-4.0-h prefill", 32768, 4096, None),
+               ("granite-4.0-h gate", 32, 8192, 8192),
+               ("per-head gate", 32, 8192, 64))
+NORM_RAGGED_ROWS = (1, 3, 33)
+
+
+def _bf16_ulps(torch, got, want) -> float:
+    """The largest |got - want| in bf16 ulps at max(|got|, |want|)."""
+    g, w = got.float(), want.float()
+    mag = torch.maximum(g.abs(), w.abs()).clamp_min(2.0 ** -126)
+    return float(((g - w).abs()
+                  / torch.exp2(torch.floor(torch.log2(mag)) - 7)).max())
+
+
+def phase_norm(torch, card) -> list:
+    """The RMSNorm kernel against the plain chain on the card (module
+    docstring, phase 3b); a row per serving shape with its time, bytes
+    bound and the plain chain's time.  The bytes: the rows in (x, and z
+    where gated) and out once, the weight once."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import rms_norm as nmod
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    flush = torch.empty(64 << 20, dtype=torch.int8, device=dev)
+    oks, rows = {}, []
+
+    def inputs(n, d, group):
+        x = 3.0 * torch.randn((n, d), generator=gen, device=dev)
+        w = (0.3 * torch.randn(d, generator=gen, device=dev)).bfloat16()
+        if group is None:
+            return x.bfloat16(), w, None
+        z = 2.0 * torch.randn((n, d), generator=gen, device=dev)
+        return x, w, z.bfloat16()
+
+    def check(label, x, w, z, group):
+        n = nmod.launches
+        got = nmod.rms_norm(x, w, NORM_EPS, z=z, group=group)
+        want = ref.rms_norm_ref(x, w, NORM_EPS, z=z, group=group)
+        ulps = _bf16_ulps(torch, got, want)
+        oks[label] = (nmod.launches == n + 1 and got.dtype == torch.bfloat16
+                      and bool(torch.isfinite(got).all()) and ulps <= 1.0)
+        return ulps
+
+    t0 = time.monotonic()
+    for tag, n, d, group in NORM_SHAPES:
+        x, w, z = inputs(n, d, group)
+        ulps = check(tag, x, w, z, group)
+        for r in NORM_RAGGED_ROWS:
+            check(f"{tag} rows {r}", x[:r], w, None if z is None else z[:r],
+                  group)
+        nbytes = float(x.numel() * x.element_size() + 2 * n * d + 2 * d
+                       + (0 if z is None else 2 * n * d))
+        flop = float(n * d * (4 if z is None else 8))
+        bound, by = _bound(flop, nbytes, "float32")
+        def kernel():
+            return nmod.rms_norm(x, w, NORM_EPS, z=z, group=group)
+
+        def plain():
+            return ref.rms_norm_ref(x, w, NORM_EPS, z=z, group=group)
+
+        ms, plain_ms = (_time_ms(torch, f, flush) for f in (kernel, plain))
+        # the same with a flush that leaves no dirty lines in L2 to write
+        # back during the call
+        ms_read, plain_read = (_time_ms(torch, f, flush, dirty=False)
+                               for f in (kernel, plain))
+        rows.append(dict(
+            name="rms_norm", route="cuda", model=tag,
+            source="src/repro_torch/kernels/csrc/rms_norm.cu",
+            replaces="none (the JAX package normalises in jnp)",
+            shape=f"{tag}: x [{n},{d}] {str(x.dtype)[6:]}"
+                  + ("" if z is None else f", z bf16, group {group}")
+                  + " -> bf16",
+            max_bf16_ulps=ulps, ms=ms, bound_ms=bound, bound_by=by,
+            roofline_pct=100.0 * bound / ms, plain_ms=plain_ms,
+            ms_read_flush=ms_read, plain_ms_read_flush=plain_read))
+    emit("norm", card=card["nvidia_smi"], rows=rows, ok=oks,
+         phase_host_wall_s=time.monotonic() - t0)
+    del flush
+    if not all(oks.values()):
+        raise AssertionError(f"rms_norm out of tolerance: "
+                             f"{[k for k, ok in oks.items() if not ok]}")
+    return rows
+
+
 # ---------------------------------------------------------------------------
 def _model(torch, name: str, num_layers=None, dtype=None, seed: int = 0):
     from repro_torch.configs import get_arch
@@ -1080,8 +1182,10 @@ def _model(torch, name: str, num_layers=None, dtype=None, seed: int = 0):
 def _each_call_checked(torch, found: dict):
     """Within the block, every kernel launch is also held against its plain
     version on the same inputs (attention at its dtype's tolerance, the
-    SSD's y and final state at 2e-3); ``found`` collects, per kernel, the
-    calls, the largest |error| and the calls out of tolerance.  Each SSD
+    SSD's y and final state at 2e-3, the norm at its dtype's tolerance);
+    ``found`` collects, per kernel, the calls, the largest |error| and the
+    calls out of tolerance.  A norm launched while a CUDA graph is
+    captured is counted, not compared (a capture cannot read the card).  Each SSD
     call is also held against the recurrence in float64 on its inputs
     (SSD_F64_TOL): ``found["ssd_scan_vs_float64"]`` holds the calls, the
     kernel's and the plain version's largest relative error, and the
@@ -1089,6 +1193,7 @@ def _each_call_checked(torch, found: dict):
     from repro_torch.kernels import decode_attention as dmod
     from repro_torch.kernels import flash_attention as fmod
     from repro_torch.kernels import ref
+    from repro_torch.kernels import rms_norm as nmod
     from repro_torch.kernels import ssd_scan as smod
 
     def record(kernel, pairs, tol):
@@ -1100,8 +1205,8 @@ def _each_call_checked(torch, found: dict):
     def tol(x):
         return TOLS[str(x.dtype).removeprefix("torch.")]
 
-    flash, decode, ssd = (fmod.flash_attention, dmod.decode_attention,
-                          smod.ssd_scan)
+    flash, decode, ssd, norm = (fmod.flash_attention, dmod.decode_attention,
+                                smod.ssd_scan, nmod.rms_norm)
 
     def flash_checked(q, k, v, **kw):
         out = flash(q, k, v, **kw)
@@ -1130,27 +1235,69 @@ def _each_call_checked(torch, found: dict):
                                         bad + (kern > SSD_F64_TOL))
         return y, fin
 
+    def norm_checked(x, w, eps, *, z=None, group=None):
+        out = norm(x, w, eps, z=z, group=group)
+        capturing = (torch.cuda.is_available()
+                     and torch.cuda.is_current_stream_capturing())
+        pairs = ([] if capturing else
+                 [(out, ref.rms_norm_ref(x, w, eps, z=z, group=group))])
+        record("rms_norm", pairs, tol(out))
+        return out
+
     fmod.flash_attention, dmod.decode_attention, smod.ssd_scan = (
         flash_checked, decode_checked, ssd_checked)
+    nmod.rms_norm = norm_checked
     try:
         yield
     finally:
         fmod.flash_attention, dmod.decode_attention, smod.ssd_scan = (
             flash, decode, ssd)
+        nmod.rms_norm = norm
 
 
-def _calls_in_tolerance(arch, found: dict, prefills: int, steps: int):
+def _norm_sites(arch) -> int:
+    """The norms of one pass (a prefill or a decode step): two an attention
+    application (before it and before its FFN), two a Mamba2 layer (its
+    input and its gate) and a third where the layer has an FFN
+    (``hybrid_moe``), and the final norm."""
+    from repro_torch.models.kvcache import (num_attn_applications,
+                                            num_ssm_layers)
+    per_ssm = 3 if arch.family == "hybrid_moe" else 2
+    return (2 * num_attn_applications(arch) + per_ssm * num_ssm_layers(arch)
+            + 1)
+
+
+def _captured(eng) -> int:
+    """The batch sizes an engine's graphed decode has captured (0 where it
+    decodes eagerly)."""
+    return len(eng._graphed._batches) if eng._graphed is not None else 0
+
+
+def _norm_calls(arch, passes: int, captured: int = 0) -> int:
+    """rms_norm launches of ``passes`` eager passes (prefills and decode
+    steps; a step replayed from a CUDA graph launches none) and of
+    ``captured`` batch sizes captured meanwhile (each an eager pass and a
+    capture)."""
+    return _norm_sites(arch) * (passes + 2 * captured)
+
+
+def _calls_in_tolerance(arch, found: dict, prefills: int, steps: int,
+                        norms=None):
     """None if the checked calls are all in tolerance and as many as the
     path makes (per prefill one flash call per attention application and
     one SSD call per Mamba2 layer, per decode step one decode call per
-    application), else what is wrong."""
+    application, per pass :func:`_norm_sites` norms, or ``norms`` where
+    given), else what is wrong."""
     from repro_torch.models.kvcache import num_attn_applications
     n_attn = num_attn_applications(arch)
     expect = {k: n for k, n in (
         ("flash_attention", n_attn * prefills),
         ("decode_attention", n_attn * steps),
-        ("ssd_scan", arch.num_layers * prefills if arch.ssm else 0)) if n}
-    calls = {k: v[0] for k, v in found.items() if k in KERNELS}
+        ("ssd_scan", arch.num_layers * prefills if arch.ssm else 0),
+        ("rms_norm", _norm_calls(arch, prefills + steps) if norms is None
+         else norms)) if n}
+    calls = {k: v[0] for k, v in found.items()
+             if k in KERNELS + ("rms_norm",)}
     bad = {k: v[-1] for k, v in found.items() if v[-1]}
     if calls != expect or bad:
         return f"calls {calls} (expected {expect}), out of tolerance {bad}"
@@ -1193,12 +1340,14 @@ def _plain_altered(attr: str, wrong, every_call: bool = False):
 
 @contextlib.contextmanager
 def _plain_in_float64(torch):
-    """Within the block, the plain attention and SSD compute in float64
-    (inputs cast up, results cast back): the yardstick of both fp32
-    paths, since a stack of random Mamba2 layers amplifies rounding."""
+    """Within the block, the plain attention, SSD and norms compute in
+    float64 (inputs cast up, results cast back to the dtype they return:
+    x's, or a gated norm's z's): the yardstick of both fp32 paths, since a
+    stack of random Mamba2 layers amplifies rounding."""
     from repro_torch.kernels import ref
     saved = {n: getattr(ref, n) for n in (
-        "flash_attention_ref", "decode_attention_ref", "ssd_scan_ref")}
+        "flash_attention_ref", "decode_attention_ref", "ssd_scan_ref",
+        "rms_norm_ref")}
 
     def up(t):
         return t.double() if torch.is_tensor(t) else t
@@ -1206,7 +1355,7 @@ def _plain_in_float64(torch):
     def in_float64(plain):
         def call(*args, **kw):
             out = plain(*map(up, args), **{k: up(v) for k, v in kw.items()})
-            f = args[0].dtype
+            f = (kw.get("z") if kw.get("z") is not None else args[0]).dtype
             return (tuple(o.to(f) for o in out) if isinstance(out, tuple)
                     else out.to(f))
         return call
@@ -1280,10 +1429,12 @@ def phase_seqpar(torch, card, model) -> dict:
     mid-tile), against the same steps on the whole sequence.  The launch
     counts are set to 0 just before the sharded run and read just after:
     one flash launch a shard and attention layer, one partial launch a
-    non-empty shard, layer and step, no whole-cache decode."""
+    non-empty shard, layer and step, no whole-cache decode, and every
+    norm of the prefill and the steps."""
     import numpy as np
     from repro_torch.kernels import decode_attention as dmod
     from repro_torch.kernels import flash_attention as fmod
+    from repro_torch.kernels import rms_norm as nmod
     from repro_torch.models.kvcache import num_attn_applications
 
     t0 = time.monotonic()
@@ -1296,18 +1447,20 @@ def phase_seqpar(torch, card, model) -> dict:
     whole = _forced_logits(torch, model, prompts, forced)
     torch.cuda.synchronize()
     fmod.launches = dmod.launches = dmod.partial_launches = 0
+    nmod.launches = 0
     with _sequence_shards(torch, SEQ_SHARDS):
         sharded = _forced_logits(torch, model, prompts, forced)
     torch.cuda.synchronize()
     counts = {"flash_attention": fmod.launches,
               "decode_attention": dmod.launches,
-              PARTIAL: dmod.partial_launches}
+              PARTIAL: dmod.partial_launches, "rms_norm": nmod.launches}
     n_attn = num_attn_applications(arch)
     S_l = SERVE_MAX_SEQ // SEQ_SHARDS
     expect = {"flash_attention": n_attn * SEQ_SHARDS, "decode_attention": 0,
               PARTIAL: n_attn * sum(
                   sum(P + i + 1 > r * S_l for r in range(SEQ_SHARDS))
-                  for i in range(SERVE_NEW))}
+                  for i in range(SERVE_NEW)),
+              "rms_norm": _norm_calls(arch, 1 + SERVE_NEW)}
     rel = float((sharded - whole).abs().max() / whole.abs().max())
     top1 = float((sharded.argmax(-1) == whole.argmax(-1)).float().mean())
     finite = bool(torch.isfinite(sharded).all())
@@ -1483,6 +1636,7 @@ def phase_serve(torch, card, model, seed: int) -> dict:
     from repro_torch.kernels import decode_attention as dmod
     from repro_torch.kernels import flash_attention as fmod
     from repro_torch.kernels import quant_matmul as qmod
+    from repro_torch.kernels import rms_norm as nmod
     from repro_torch.kernels import ssd_scan as smod
     from repro_torch.kernels import ssd_step as step_mod
     from repro_torch.models.kvcache import num_attn_applications
@@ -1505,10 +1659,12 @@ def phase_serve(torch, card, model, seed: int) -> dict:
         batcher.submit(ServeRequest(i, p, deadline_s=1e9, submitted_s=0.0))
     torch.cuda.reset_peak_memory_stats()
     mods = {"flash_attention": fmod, "decode_attention": dmod,
-            "ssd_scan": smod, "quant_matmul": qmod, "ssd_step": step_mod}
+            "ssd_scan": smod, "quant_matmul": qmod, "ssd_step": step_mod,
+            "rms_norm": nmod}
     for mod in mods.values():
         mod.launches = 0
     dmod.partial_launches = 0
+    graphs = _captured(eng)
     done, walls = [], []
     while batcher.queue:
         t0 = time.monotonic()
@@ -1522,11 +1678,14 @@ def phase_serve(torch, card, model, seed: int) -> dict:
     n_batches = len(walls)
     n_attn = num_attn_applications(arch)
     n_ssm = arch.num_layers if arch.ssm is not None else 0
+    steps = 0 if eng.decode_mode == "graphed" else SERVE_NEW - 1
     expect = {"flash_attention": n_attn * n_batches,
               "decode_attention": n_attn * n_batches * (SERVE_NEW - 1),
               "ssd_scan": n_ssm * n_batches,
               "quant_matmul": 0,     # no model serves int8 (Variant.quant)
-              "ssd_step": n_ssm * n_batches * (SERVE_NEW - 1)}
+              "ssd_step": n_ssm * n_batches * (SERVE_NEW - 1),
+              "rms_norm": _norm_calls(arch, n_batches * (1 + steps),
+                                      _captured(eng) - graphs)}
     results_ok = all(r.result is not None and r.result.shape == (SERVE_NEW,)
                      and int(r.result.min()) >= 0
                      and int(r.result.max()) < V for r in done)
@@ -1537,6 +1696,7 @@ def phase_serve(torch, card, model, seed: int) -> dict:
          tokens_per_s=len(done) * SERVE_NEW / sum(walls),
          max_memory_allocated_bytes=torch.cuda.max_memory_allocated(),
          launches=counts, expected_launches=expect,
+         decode_mode=eng.decode_mode,
          partial_launches=dmod.partial_launches)
     if len(done) != SERVE_BATCH or not results_ok:
         raise AssertionError(f"{arch.name}: served {len(done)} of "
@@ -1699,8 +1859,8 @@ def _routes_logged(log: list):
     ``log``."""
     from repro_torch.models import moe
     mlp = moe.moe_mlp
-    moe.moe_mlp = lambda h, blk, arch, dispatch: mlp(h, blk, arch, dispatch,
-                                                     log)
+    moe.moe_mlp = lambda h, blk, arch, dispatch, **kw: mlp(
+        h, blk, arch, dispatch, log, **kw)
     try:
         yield
     finally:
@@ -2121,6 +2281,21 @@ def _served_terms(arch, batch: int, prompt: int, new: int) -> dict:
     return {"prefill_flop": fl_p, "step_flop": fl_d, "bytes": wb + kv}
 
 
+def _served_app(graph):
+    """The app's graph with every variant at the lengths the engines serve
+    (``EngineBackend``: a prompt of COMPOUND_PROMPT tokens and SERVE_NEW
+    new ones, whatever the variant's own ``seq_len`` and ``gen_len``), so
+    that the profiler prices the work the card does.  At the app's own
+    lengths social_media's ingest (a prefill of 128, no new token) was
+    priced at a fifth of its served time; a plan that left less slack
+    than that on the ingest-caption path dropped every root at caption."""
+    import dataclasses
+    tasks = {name: dataclasses.replace(task, variants=tuple(
+        dataclasses.replace(v, seq_len=COMPOUND_PROMPT, gen_len=SERVE_NEW)
+        for v in task.variants)) for name, task in graph.tasks.items()}
+    return dataclasses.replace(graph, tasks=tasks)
+
+
 def _fit_device(dev, terms: dict, measured: dict):
     """``dev`` with its efficiencies fitted to the measured walls: one-
     parameter least squares of the profiler's model over the archs,
@@ -2145,9 +2320,9 @@ def _fit_device(dev, terms: dict, measured: dict):
 
 def _profiled_vs_measured(graph, dev, measured: dict) -> dict:
     """Per arch, the profiler's own service (``Profiler.profile_one``, P95
-    factor divided out) of the arch's first variant at the served lengths
-    (prompt 256, 16 new tokens), batch 8, on one whole H100 of spec
-    ``dev``, beside the measured service."""
+    factor divided out) of the arch's first variant of ``graph`` (at the
+    served lengths: :func:`_served_app`), batch 8, on one whole H100 of
+    spec ``dev``, beside the measured service."""
     import dataclasses
     from repro_torch.core.profiler import P95_FACTOR, Profiler
     from repro_torch.hwspec import ClusterSpec, h100_cluster
@@ -2160,8 +2335,6 @@ def _profiled_vs_measured(graph, dev, measured: dict) -> dict:
     for a in sorted(measured):
         v = next(v for t in graph.tasks.values() for v in t.variants
                  if v.arch == a)
-        v = dataclasses.replace(v, seq_len=COMPOUND_PROMPT,
-                                gen_len=SERVE_NEW)
         e = prof.profile_one(v, whole, COMPOUND_BATCH, pool=pool)
         service = e.latency_ms / 1e3 / P95_FACTOR
         out[a] = {"service_s": service,
@@ -2345,7 +2518,8 @@ def phase_plan(torch, card, seed: int) -> dict:
     with the profiler's services before and after the fit beside the
     measured ones; the deadline scale fixed from the measured services;
     then the port's Planner on one MIG-carved H100 (h100_cluster with the
-    fitted spec) at the compound rate, which must give a plan that its
+    fitted spec) at the compound rate, for the app at the lengths the
+    engines serve (:func:`_served_app`), which must give a plan that its
     MigSlicePacker packs, and the plan for four cards at ten times the
     rate, printed only.  The timed runs are this phase's path: the
     kernels' counts are set to 0 before them and checked after.  Returns
@@ -2361,7 +2535,7 @@ def phase_plan(torch, card, seed: int) -> dict:
 
     t_phase = time.monotonic()
     spec = _phase_spec(torch, card, H100_SXM)
-    graph = get_app(COMPOUND_APP)
+    graph = _served_app(get_app(COMPOUND_APP))
     archs = _archs(graph)
     backend = EngineBackend(reduced=False, max_batch=COMPOUND_BATCH,
                             max_seq=COMPOUND_MAX_SEQ,
@@ -2464,14 +2638,19 @@ def phase_compound(torch, card, seed: int, planned: dict) -> dict:
     checked, bad = {}, {}
     for arch_name in _archs(graph):
         found = {}
+        eng = backend._engines[arch_name]
+        graphs = _captured(eng)
         with _each_call_checked(torch, found):
             backend.service_s(_probe(graph, arch_name),
                               [None] * COMPOUND_BATCH, 0.0, rng)
         checked[arch_name] = {k: {"calls": n, "max_abs_err": worst,
                                   "out_of_tol": out}
                               for k, (n, worst, out) in found.items()}
-        wrong = _calls_in_tolerance(backend._engines[arch_name].model.arch,
-                                    found, 1, SERVE_NEW - 1)
+        steps = 0 if eng.decode_mode == "graphed" else SERVE_NEW - 1
+        wrong = _calls_in_tolerance(
+            eng.model.arch, found, 1, SERVE_NEW - 1,
+            norms=_norm_calls(eng.model.arch, 1 + steps,
+                              _captured(eng) - graphs))
         if wrong:
             bad[arch_name] = wrong
     mods = {"flash_attention": fmod, "decode_attention": dmod,
@@ -3702,6 +3881,7 @@ def _shard_serve_way(torch, model, prompts, probe, busy_of) -> dict:
     from repro_torch.kernels import decode_attention as dmod
     from repro_torch.kernels import flash_attention as fmod
     from repro_torch.kernels import quant_matmul as qmod
+    from repro_torch.kernels import rms_norm as nmod
     from repro_torch.kernels import ssd_scan as smod
     from repro_torch.kernels import ssd_step as step_mod
     from repro_torch.serving.batcher import Batcher, ServeRequest
@@ -3721,10 +3901,12 @@ def _shard_serve_way(torch, model, prompts, probe, busy_of) -> dict:
     for i, p in enumerate(prompts):
         batcher.submit(ServeRequest(i, p, deadline_s=1e9, submitted_s=0.0))
     mods = {"flash_attention": fmod, "decode_attention": dmod,
-            "ssd_scan": smod, "quant_matmul": qmod, "ssd_step": step_mod}
+            "ssd_scan": smod, "quant_matmul": qmod, "ssd_step": step_mod,
+            "rms_norm": nmod}
     torch.cuda.reset_peak_memory_stats()
     for mod in mods.values():
         mod.launches = 0
+    graphs = _captured(eng)
     done, walls = [], []
     while batcher.queue:
         t0 = time.monotonic()
@@ -3735,6 +3917,7 @@ def _shard_serve_way(torch, model, prompts, probe, busy_of) -> dict:
             raise AssertionError("shard: the batcher launched nothing")
         done += served
     launches = {name: mod.launches for name, mod in mods.items()}
+    captured = _captured(eng) - graphs
     peak = torch.cuda.max_memory_allocated()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -3747,7 +3930,8 @@ def _shard_serve_way(torch, model, prompts, probe, busy_of) -> dict:
         eng.generate(probe, max_new=SERVE_NEW)
     results = [r.result for r in sorted(done, key=lambda r: r.req_id)]
     return {"decode_mode": eng.decode_mode, "batches": len(walls),
-            "wall_s_per_batch": walls, "launches": launches,
+            "captured": captured, "wall_s_per_batch": walls,
+            "launches": launches,
             "collectives_per_batch": _comm_counts(comms),
             "peak_bytes": peak, "profiled_batch_wall_s": wall,
             "profiled_device_busy_ms": busy,
@@ -3759,7 +3943,9 @@ def _shard_serve(torch, card, name: str, mesh, seed: int,
                  busy_of=_device_busy_ms) -> dict:
     """A model served without a policy and then with the decode-kind
     policy on the mesh, on the same weights: tokens must be identical, the
-    first-step logits within LOGITS_TOL, every kernel's launches equal."""
+    first-step logits within LOGITS_TOL, every kernel's launches as
+    expected (the norms' by each way's decode: replayed from CUDA graphs
+    without the policy where the family is graphed, eager with it)."""
     import numpy as np
     from repro_torch.configs.shapes import ShapeConfig
     from repro_torch.models import Model
@@ -3798,14 +3984,23 @@ def _shard_serve(torch, card, name: str, mesh, seed: int,
               "decode_attention": n_attn * plain["batches"] * (SERVE_NEW - 1),
               "ssd_scan": n_ssm * plain["batches"], "quant_matmul": 0,
               "ssd_step": n_ssm * plain["batches"] * (SERVE_NEW - 1)}
+
+    def expected(way):
+        steps = 0 if way["decode_mode"] == "graphed" else SERVE_NEW - 1
+        return {**expect, "rms_norm": _norm_calls(
+            arch, way["batches"] * (1 + steps), way["captured"])}
+
     fails = []
     if not same_tokens:
         fails.append(f"{name}: tokens differ with the policy")
     if not rel < LOGITS_TOL:
         fails.append(f"{name}: first-step logits {rel} >= {LOGITS_TOL}")
-    if not plain["launches"] == sharded["launches"] == expect:
+    want = {"plain": expected(plain), "sharded": expected(sharded)}
+    if (plain["launches"] != want["plain"]
+            or sharded["launches"] != want["sharded"]):
         fails.append(f"{name}: launches {plain['launches']} / "
-                     f"{sharded['launches']} != {expect}")
+                     f"{sharded['launches']} != {want['plain']} / "
+                     f"{want['sharded']}")
     if placed != n_params:
         fails.append(f"{name}: {placed} of {n_params} parameters placed")
     emit("shard_serve", card=card["nvidia_smi"], arch=arch.name,
@@ -3813,7 +4008,7 @@ def _shard_serve(torch, card, name: str, mesh, seed: int,
          attn_mode=policy.attn_mode, rules=policy.rules,
          parameters_placed=placed, tokens_identical=same_tokens,
          first_logits_rel_err=rel, logits_tol=LOGITS_TOL,
-         expected_launches=expect, plain=plain, sharded=sharded,
+         expected_launches=want, plain=plain, sharded=sharded,
          failures=fails)
     return {"failures": fails, "launches": sharded["launches"]}
 
@@ -4253,6 +4448,7 @@ def main(argv=None) -> int:
     card = phase_device(torch)
     phase_build()
     rows = phase_kernels(torch, card)
+    rows += phase_norm(torch, card)
     launches = {}                 # per served model, per kernel
     # (model, layers of its fp32 greedy check; None: no model phase)
     for name, small_layers in ((QWEN, 2), (ZAMBA, 7), (MAMBA, None)):
@@ -4276,6 +4472,12 @@ def main(argv=None) -> int:
     phase_shard(torch, card, args.seed)
     phase_dryrun(torch, card, args.seed)
     for row in rows:
+        if row["name"] == "rms_norm":   # every served model's norms
+            row["launches"] = sum(c["rms_norm"] for c in launches.values())
+            row["launches_by_model"] = {m: c["rms_norm"]
+                                        for m, c in launches.items()}
+            row["launches_from"] = "serve phases (every model's norms)"
+            continue
         if row["name"] == PARTIAL:      # one card serves no shards
             row["launches"] = seqpar_launches[PARTIAL]
             row["launches_from"] = "seqpar phase"

@@ -22,7 +22,7 @@ from typing import Dict, Iterable, Optional
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 SOURCES = ("flash_attention", "decode_attention", "ssd_scan", "quant_matmul",
-           "ssd_step")
+           "ssd_step", "rms_norm")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -44,6 +44,9 @@ _SIGNATURES = {
                      [_ptr] * 6 + [_int] * 3 + [_i64] * 3 + [_int] * 3
                      + [_ptr]},
     "ssd_step": {"ssd_step_launch": [_ptr] * 9 + [_int] * 4 + [_ptr]},
+    "rms_norm": {"rms_norm_launch":
+                 [_ptr, _i64, _int] * 2 + [_ptr, _int] * 2 + [_int] * 4
+                 + [ctypes.c_float, _ptr]},
 }
 
 _libs: Dict[str, ctypes.CDLL] = {}

@@ -12,7 +12,8 @@ A DTensor input (a model under a ``ShardingPolicy`` with a mesh) runs
 through :func:`on_shards`: each wrapper takes its inputs to placements on
 which its work is local (batch and query/KV heads for the attention
 kernels; batch, SSM heads and head-dim rows for the SSD and its decode
-step; rows or columns for the int8 GEMM), redistributing explicitly where
+step; rows or columns for the int8 GEMM; rows, and a per-head weight's
+heads, for the norm), redistributing explicitly where
 a sharding cannot be taken locally, and calls the kernel, or its plain
 version on the CPU, on each rank's local shards.  The extension itself never sees a DTensor.
 
@@ -40,6 +41,7 @@ from repro_torch.kernels import decode_attention as _decode
 from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import quant_matmul as _qmm
 from repro_torch.kernels import ref
+from repro_torch.kernels import rms_norm as _norm
 from repro_torch.kernels import ssd_scan as _ssd
 from repro_torch.kernels import ssd_step as _step
 from repro_torch.sharding.policy import is_dtensor, redistribute, seq_rank
@@ -203,6 +205,19 @@ def on_shards(fn: Callable, *args, **kwargs):
                                             **kwargs),
             mesh, (x, dt, A, Bm, Cm, init), in_p, out_p,
             (x.shape, (B, nh, hd, ds)))
+    if kind == "norm":
+        # rows (every dim but the last) and, for a per-head weight, its
+        # heads alike: each rank normalises whole groups; the last dim
+        # whole on each rank
+        x, weight, eps = args
+        z = kwargs.pop("z", None)
+        lead = x.dim() - weight.dim()
+        dims = tuple(range(x.dim() - 1))
+        plan = _plan(mesh, dict(enumerate(x.shape)), [(x, dims), (z, dims)])
+        xp = _placed(plan, {i: i for i in dims})
+        wp = _placed(plan, {i: i - lead for i in dims if i >= lead})
+        return run_local(lambda x, w, z: fn(x, w, eps, z=z, **kwargs), mesh,
+                         (x, weight, z), (xp, wp, xp), (xp,), (x.shape,))
     if kind == "step":
         # the state's batch, heads and head-dim rows, as the state (else x)
         # is split; A, D, Bm and Cm whole on each rank.  ``out`` takes the
@@ -381,6 +396,33 @@ def quant_matmul(x_q: torch.Tensor, w_q: torch.Tensor, x_scale: torch.Tensor,
     return ref.quant_matmul_ref(x_q, w_q, x_scale, w_scale, out_dtype)
 
 
+def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-5, *,
+             z: Optional[torch.Tensor] = None,
+             group: Optional[int] = None) -> torch.Tensor:
+    """RMSNorm of x [..., d] over its last dim scaled by ``1 + weight``
+    (x's trailing dims), or with a gate ``z`` (x's shape) of ``x *
+    silu(z)`` over groups of ``group`` channels of the last dim
+    (``ref.rms_norm_ref``).  On the card the kernel takes the rows as they
+    are where they are 16-byte aligned, else a contiguous copy: rows of
+    ``weight.numel()`` channels in groups of the last dim (a per-head
+    ``weight`` [nh, hd] normalises each head's hd channels)."""
+    if _sharded(x, weight, z):
+        return on_shards(rms_norm, x, weight, eps, z=z, group=group)
+    if not _kernel_path("rms_norm", x, weight, z):
+        return ref.rms_norm_ref(x, weight, eps, z=z, group=group)
+    d = weight.numel()
+    g = group or x.shape[-1]
+
+    def rows(t):
+        r = t.reshape(-1, d)
+        return r if _norm.rows_aligned(r) else r.contiguous()
+
+    out = _norm.rms_norm(rows(x), weight.reshape(d), eps,
+                         z=None if z is None else rows(z),
+                         group=None if g == d else g)
+    return out.view(x.shape)
+
+
 def quantize_int8(x: torch.Tensor, axis: int = -1
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Symmetric int8 quantisation (plain PyTorch on either device, as the
@@ -404,4 +446,5 @@ _KIND = {f.__name__: kind for f, kind in (
     (decode_attention, "decode"), (ref.decode_attention_ref, "decode"),
     (ssd_scan, "ssd"), (ref.ssd_scan_ref, "ssd"),
     (ssd_step, "step"), (ref.ssd_step_ref, "step"),
+    (rms_norm, "norm"), (ref.rms_norm_ref, "norm"),
     (quant_matmul, "quant"), (ref.quant_matmul_ref, "quant"))}

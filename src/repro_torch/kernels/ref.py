@@ -14,6 +14,9 @@ is sequence-sharded.
 oracle both are held against.  ``ssd_step_ref`` is one decode step of that
 recurrence with the skip term (the CPU path of ``ops.ssd_step``).  ``quant_matmul_ref`` and ``quantize_int8``
 are the int8 path's (``repro.kernels.ref``'s of the same names).
+``rms_norm_ref`` is the models' RMSNorm, plain or SiLU-gated, as the chain
+of ops the models ran before the kernel (the plain route of
+``layers.rms_norm`` and ``layers.gated_rms_norm``).
 """
 from __future__ import annotations
 
@@ -21,6 +24,7 @@ import math
 from typing import Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 NEG_INF = -1e30
 
@@ -291,3 +295,25 @@ def quantize_int8(x: torch.Tensor, axis: int = -1
     scale = torch.clamp_min(amax, 1e-8) / 127.0
     q = torch.clamp(torch.round(xf / scale.unsqueeze(axis)), -127, 127)
     return q.to(torch.int8), scale
+
+
+def rms_norm_ref(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-5, *,
+                 z: Optional[torch.Tensor] = None,
+                 group: Optional[int] = None) -> torch.Tensor:
+    """RMSNorm over x's last dim scaled by ``(1 + weight)`` (weights are
+    zero-initialised), in fp32 (float64 stays float64), of x's dtype.  With
+    a gate ``z`` (x's shape): ``x * silu(z)`` normalised, each run of
+    ``group`` channels of the last dim on its own (default: all of it), of
+    z's dtype.  ``weight`` broadcasts against x's trailing dims."""
+    if z is None:
+        xf = x.to(torch.promote_types(x.dtype, torch.float32))
+        xf = xf * torch.rsqrt(xf.square().mean(-1, keepdim=True) + eps)
+        return (xf * (1.0 + weight.to(xf.dtype))).to(x.dtype)
+    y = x * F.silu(z.to(torch.promote_types(z.dtype, torch.float32)))
+    if group is not None and group != y.shape[-1]:
+        g = y.unflatten(-1, (-1, group))
+        g = g * torch.rsqrt(g.square().mean(-1, keepdim=True) + eps)
+        y = g.flatten(-2)
+    else:
+        y = y * torch.rsqrt(y.square().mean(-1, keepdim=True) + eps)
+    return (y * (1.0 + weight.to(y.dtype))).to(z.dtype)

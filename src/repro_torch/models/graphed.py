@@ -113,9 +113,9 @@ class _Batch:
         def ffn(h, i):
             blk = m.blocks[i]
             if isinstance(blk, tfm.DenseBlock):
-                return h + scaled(tfm.mlp(h, blk, arch))
+                return h + scaled(tfm.mlp(h, blk, arch, impl=m.impl))
             return h + scaled(moe_mod.moe_mlp(h, blk, arch, m.moe_dispatch,
-                                              layer=i))
+                                              layer=i, impl=m.impl))
 
         def start(_, j: int, prev: Optional[int]):
             if prev is None:
@@ -136,7 +136,8 @@ class _Batch:
             if i is None:
                 return m.head(h)
             return h, tfm.decode_qkv(h, m.blocks[i], arch, c["k"][j],
-                                     c["v"][j], self.pos, self.idx)
+                                     c["v"][j], self.pos, self.idx,
+                                     impl=m.impl)
 
         segments: List[List[Callable]] = []
         body: List[Callable] = []

@@ -8,7 +8,11 @@ Logits are fp32: on the card, from bf16 activations and a bf16 table
 read in place (bf16 operands, fp32 products and accumulation, as the
 reference's ``preferred_element_type``); elsewhere from operands upcast
 first.  ``logit_routes`` tallies which of the two each call took.
-Attention itself lives in ``repro_torch.kernels``.
+Norms go through ``ops.rms_norm`` (on the card one CUDA kernel: bf16 or
+fp32 rows in, fp32 arithmetic, one rounding out), or with
+``impl="plain"`` the plain chain of ops; ``norm_routes`` tallies the
+two.  Attention itself lives in
+``repro_torch.kernels``.
 """
 from __future__ import annotations
 
@@ -17,6 +21,7 @@ from typing import Callable, Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels import ops, ref
 from repro_torch.sharding.policy import is_dtensor, redistribute
 
 
@@ -25,12 +30,45 @@ def upcast(x: torch.Tensor) -> torch.Tensor:
     return x.to(torch.promote_types(x.dtype, torch.float32))
 
 
-def rms_norm(x: torch.Tensor, weight: torch.Tensor,
-             eps: float = 1e-5) -> torch.Tensor:
-    """RMSNorm scaled by ``(1 + weight)`` (weights are zero-initialised)."""
-    xf = upcast(x)
-    xf = xf * torch.rsqrt(xf.square().mean(-1, keepdim=True) + eps)
-    return (xf * (1.0 + weight.to(xf.dtype))).to(x.dtype)
+# Norm calls by route: "kernel" (``ops.rms_norm`` with its tensors on the
+# card: the CUDA kernel, on each rank's shards under a mesh) or "plain"
+# (the plain chain: ``impl="plain"``, or tensors off the card).  Under CUDA
+# graphs it counts eager calls and captures, not replays.
+norm_routes = {"kernel": 0, "plain": 0}
+
+
+def _norm(impl: str, x: torch.Tensor) -> Callable:
+    """The norm of ``impl``, tallied: ``ops.rms_norm`` (which dispatches by
+    device and shards), or ``ref.rms_norm_ref`` (``impl="plain"``)."""
+    on_card = impl == "kernel" and x.device.type == "cuda"
+    norm_routes["kernel" if on_card else "plain"] += 1
+    return ops.rms_norm if impl == "kernel" else ref.rms_norm_ref
+
+
+def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-5,
+             impl: str = "kernel") -> torch.Tensor:
+    """RMSNorm scaled by ``(1 + weight)`` (weights are zero-initialised),
+    in fp32 arithmetic, of x's dtype: through ``ops.rms_norm`` (the CUDA
+    kernel on the card), or with ``impl="plain"`` the plain chain
+    (``ref.rms_norm_ref``)."""
+    return _norm(impl, x)(x, weight, eps)
+
+
+def gated_rms_norm(x: torch.Tensor, z: torch.Tensor, weight: torch.Tensor,
+                   eps: float, groups: int = 0,
+                   impl: str = "kernel") -> torch.Tensor:
+    """Mamba2's gated RMSNorm: ``x * silu(z)`` (x, z: [..., nh, hd]),
+    normalised over each head's hd channels, or with ``groups`` over each
+    of that many groups of the nh * hd channels, scaled by ``1 + weight``
+    ([nh, hd]); of z's dtype.  Routed as :func:`rms_norm`.  Per head the
+    heads stay a dim of their own (torch 2.11's DTensor will not flatten
+    [nh, hd] with hd sharded)."""
+    norm = _norm(impl, x)
+    if not groups:
+        return norm(x, weight, eps, z=z)
+    heads = x.shape[-2:]
+    return norm(x.flatten(-2), weight.flatten(), eps, z=z.flatten(-2),
+                group=heads.numel() // groups).unflatten(-1, heads)
 
 
 def rope_frequencies(head_dim: int, theta: float, device: torch.device,

@@ -118,9 +118,9 @@ class Model(nn.Module):
     ``"meta"`` builds the shapes without allocating.  Parameters are made
     with ``torch.empty``: fill them with :meth:`init` or
     ``load_state_dict`` (e.g. from ``convert.from_jax_params``).
-    ``impl`` routes every kernel of the model (attention and SSD) through
-    ``kernels.ops`` (``"kernel"``) or to the plain versions directly
-    (``"plain"``).  ``moe_dispatch`` is the MoE layers' dispatch
+    ``impl`` routes every kernel of the model (attention, SSD, norms)
+    through ``kernels.ops`` (``"kernel"``) or to the plain versions
+    directly (``"plain"``).  ``moe_dispatch`` is the MoE layers' dispatch
     (``models.moe.DISPATCHES``).  ``remat`` (``REMATS``, the reference's)
     recomputes each block in the backward pass under autograd: all of it
     (``"full"``) or all but its ``x @ w`` products (``"dots"``).  The CUDA
@@ -360,7 +360,8 @@ class Model(nn.Module):
         return self.policy.pin(h, "batch", "seq", None)
 
     def head(self, h: torch.Tensor) -> torch.Tensor:
-        h = layers.rms_norm(h, self.final_norm, self.arch.norm_eps)
+        h = layers.rms_norm(h, self.final_norm, self.arch.norm_eps,
+                            self.impl)
         table = (layers.grad_placed(self.embed).T if self.arch.tie_embeddings
                  else self.lm_head)
         out = layers.logits(h, table)
@@ -393,11 +394,13 @@ class Model(nn.Module):
         family)."""
         arch = self.arch
         if self.tracer is None:
-            return moe_mod.moe_mlp(h, blk, arch, self.moe_dispatch, layer=i)
+            return moe_mod.moe_mlp(h, blk, arch, self.moe_dispatch, layer=i,
+                                   impl=self.impl)
         route = moe_mod.route_of(arch, self.moe_dispatch, self.policy)
         rows = h.shape[0] * h.shape[1] * arch.moe.experts_per_token
         with self._span("moe.experts", layer=i, route=route, rows=rows):
-            return moe_mod.moe_mlp(h, blk, arch, self.moe_dispatch, layer=i)
+            return moe_mod.moe_mlp(h, blk, arch, self.moe_dispatch, layer=i,
+                                   impl=self.impl)
 
     def _positions(self, B: int, S: int) -> torch.Tensor:
         return torch.arange(S, dtype=torch.int32,

@@ -341,15 +341,16 @@ def moe_mlp(h: torch.Tensor, blk: MoEBlock, arch: ArchConfig,
             dispatch: str = "grouped",
             routes: Optional[List[Routes]] = None,
             policy: Optional[ShardingPolicy] = None,
-            layer: Optional[int] = None) -> torch.Tensor:
+            layer: Optional[int] = None,
+            impl: str = "kernel") -> torch.Tensor:
     """[B, S, d] -> [B, S, d]: top-k routed experts (+ the shared expert)
     on ``rms_norm(h, moe_norm)``.  ``routes``, when given, receives this
     layer's capacity dispatch's :class:`Routes` (device tensors; nothing
     is synchronised; not under a mesh).  ``layer`` keys the dropless
-    route's ``expert_rows``."""
+    route's ``expert_rows``; ``impl`` routes the norm."""
     policy = policy or NULL_POLICY
     B, S, d = h.shape
-    hn = layers.rms_norm(h, blk.moe_norm, arch.norm_eps)
+    hn = layers.rms_norm(h, blk.moe_norm, arch.norm_eps, impl)
     dispatch = route_of(arch, dispatch, policy)
     moe_routes["dropless" if dispatch == "dropless" else "capacity"] += 1
     if dispatch == "dropless":
@@ -375,13 +376,16 @@ def moe_mlp(h: torch.Tensor, blk: MoEBlock, arch: ArchConfig,
     return y
 
 
-def _mlp(h, blk, arch, dispatch, policy: ShardingPolicy):
+def _mlp(h, blk, arch, dispatch, policy: ShardingPolicy,
+         impl: str = "kernel"):
     """:func:`moe_mlp` as the blocks call it: the policy is passed only
-    when it has a mesh, so a wrapper of the four-argument call (a route
-    log) sees the call it wraps."""
-    if policy.mesh is None:
-        return moe_mlp(h, blk, arch, dispatch)
-    return moe_mlp(h, blk, arch, dispatch, policy=policy)
+    when it has a mesh, and ``impl`` only when it is not the default, so
+    a wrapper of the four-argument call (a route log) sees the call it
+    wraps."""
+    kw = {} if impl == "kernel" else {"impl": impl}
+    if policy.mesh is not None:
+        kw["policy"] = policy
+    return moe_mlp(h, blk, arch, dispatch, **kw)
 
 
 def moe_block_full(h: torch.Tensor, blk: MoEBlock, arch: ArchConfig,
@@ -392,7 +396,7 @@ def moe_block_full(h: torch.Tensor, blk: MoEBlock, arch: ArchConfig,
     policy = policy or NULL_POLICY
     a, kv = tfm.attention_full(h, blk, arch, positions, impl, policy)
     h = h + a
-    h = h + _mlp(h, blk, arch, dispatch, policy)
+    h = h + _mlp(h, blk, arch, dispatch, policy, impl)
     return policy.pin(h, "batch", "seq", None), kv
 
 
@@ -405,5 +409,5 @@ def moe_block_decode(h: torch.Tensor, blk: MoEBlock, arch: ArchConfig,
     place."""
     h = tfm.residual(h, tfm.attention_decode(h, blk, arch, k_cache, v_cache,
                                              cache_len, impl, policy), policy)
-    return tfm.residual(h, _mlp(h, blk, arch, dispatch, policy or NULL_POLICY),
-                        policy)
+    return tfm.residual(h, _mlp(h, blk, arch, dispatch, policy or NULL_POLICY,
+                                impl), policy)

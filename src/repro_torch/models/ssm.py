@@ -269,20 +269,14 @@ def _step_fn(route: str, x: torch.Tensor, state: torch.Tensor):
 
 def _gated_out(y: torch.Tensor, z: torch.Tensor, p: SSMBlock,
                arch: ArchConfig,
-               policy: ShardingPolicy = NULL_POLICY) -> torch.Tensor:
+               policy: ShardingPolicy = NULL_POLICY,
+               impl: str = "kernel") -> torch.Tensor:
     """Gated RMSNorm (scaled by ``1 + gate_norm``) and the out-projection.
     y (fp32), z: [B, S, nh, hd] -> [B, S, d].  The norm runs over each
     head's hd channels, or with ``arch.gate_norm_groups`` over each group
-    of the nh * hd channels."""
-    y = y * F.silu(layers.upcast(z))
-    if arch.gate_norm_groups:
-        g = y.unflatten(-2, (arch.gate_norm_groups, -1)).flatten(-2)
-        g = g * torch.rsqrt(g.square().mean(-1, keepdim=True)
-                            + arch.norm_eps)
-        y = g.unflatten(-1, (-1, y.shape[-1])).flatten(-3, -2)
-    else:
-        y = y * torch.rsqrt(y.square().mean(-1, keepdim=True) + arch.norm_eps)
-    y = (y * (1.0 + p.gate_norm.to(y.dtype))).to(z.dtype)
+    of the nh * hd channels, routed by ``impl``."""
+    y = layers.gated_rms_norm(y, z, p.gate_norm, arch.norm_eps,
+                              arch.gate_norm_groups, impl)
     y = policy.pin(y, "batch", "seq", "ssm_heads", "ssm_pdim")
     if is_dtensor(y) and any(q.is_shard(3) for q in y.placements):
         return _out_proj_local(y, p.wo)
@@ -363,7 +357,7 @@ def ssm_mixer_full(h: torch.Tensor, p: SSMBlock, arch: ArchConfig,
     """:func:`ssm_block_full` without the residual: (out, state)."""
     policy = policy or NULL_POLICY
     s = arch.ssm
-    hn = layers.rms_norm(h, p.ssm_norm, arch.norm_eps)
+    hn = layers.rms_norm(h, p.ssm_norm, arch.norm_eps, impl)
     z, x_pre, B_pre, C_pre, dt = _project(hn, p, arch, policy)
     x_pre = policy.pin(x_pre, "batch", "seq", "ssm_heads", "ssm_pdim")
     z = policy.pin(z, "batch", "seq", "ssm_heads", "ssm_pdim")
@@ -383,7 +377,7 @@ def ssm_mixer_full(h: torch.Tensor, p: SSMBlock, arch: ArchConfig,
     y, final = scan(x, dt, A, layers.upcast(Bm), layers.upcast(Cm),
                     chunk=s.chunk_size, init_state=s0)
     y = y + x * p.D.to(x.dtype)[:, None]
-    out = _gated_out(y, z, p, arch, policy)
+    out = _gated_out(y, z, p, arch, policy, impl)
 
     return out, SSMLayerState(ssd=final, conv_x=tail_x, conv_B=tail_B,
                               conv_C=tail_C)
@@ -409,7 +403,7 @@ def ssm_mixer_decode(h: torch.Tensor, p: SSMBlock, arch: ArchConfig,
     ``state.ssd``: the step then updates it in place), else into a new
     tensor; the conv tails are always new."""
     policy = policy or NULL_POLICY
-    hn = layers.rms_norm(h, p.ssm_norm, arch.norm_eps)[:, 0]     # [B, d]
+    hn = layers.rms_norm(h, p.ssm_norm, arch.norm_eps, impl)[:, 0]  # [B, d]
     z, x_new, B_new, C_new, dt = _project(hn, p, arch, policy)
 
     def conv_step(tail, new, w, bias):
@@ -432,6 +426,6 @@ def ssm_mixer_decode(h: torch.Tensor, p: SSMBlock, arch: ArchConfig,
     y, ssd = _step_fn(route, x, state.ssd)(
         x, dt, A, layers.upcast(Bm), layers.upcast(Cm), p.D.to(x.dtype),
         state.ssd, out=ssd_out)
-    out = _gated_out(y[:, None], z[:, None], p, arch, policy)
+    out = _gated_out(y[:, None], z[:, None], p, arch, policy, impl)
     return out, SSMLayerState(ssd=ssd, conv_x=conv_x, conv_B=conv_B,
                               conv_C=conv_C)

@@ -167,7 +167,7 @@ def attention_full(h: torch.Tensor, p: DenseBlock, arch: ArchConfig,
     gathered over the sequence shards before the attention (pinned with
     the sequence unsharded), as the reference gathers them."""
     policy = policy or NULL_POLICY
-    hn = layers.rms_norm(h, p.attn_norm, arch.norm_eps)
+    hn = layers.rms_norm(h, p.attn_norm, arch.norm_eps, impl)
     q, k, v = _project_qkv(hn, p, arch, policy)
     q, k = _rotate(q, positions, arch), _rotate(k, positions, arch)
     if policy.attn_mode == "context" and arch.q_per_kv > 1:
@@ -183,16 +183,17 @@ def attention_full(h: torch.Tensor, p: DenseBlock, arch: ArchConfig,
 def decode_qkv(h: torch.Tensor, p: DenseBlock, arch: ArchConfig,
                k_cache: torch.Tensor, v_cache: torch.Tensor,
                pos: torch.Tensor, index,
-               policy: Optional[ShardingPolicy] = None) -> torch.Tensor:
+               policy: Optional[ShardingPolicy] = None,
+               impl: str = "kernel") -> torch.Tensor:
     """The new token's rotated query [B,1,H,hd]; its K/V are written into
     the caches IN PLACE at ``index``: a host int, or a one-element int64
     tensor on the caches' device (which a captured CUDA graph reads when
     it is replayed).  ``pos``: [B, 1] int32 positions.  Under a mesh the
     write is the reference's one-hot select (``where(iota == index, new,
     cache)``), elementwise on a sequence-sharded cache, copied back into
-    the cache."""
+    the cache.  ``impl`` routes the norm (:func:`layers.rms_norm`)."""
     policy = policy or NULL_POLICY
-    hn = layers.rms_norm(h, p.attn_norm, arch.norm_eps)
+    hn = layers.rms_norm(h, p.attn_norm, arch.norm_eps, impl)
     q, k, v = _project_qkv(hn, p, arch, policy)
     q, k = _rotate(q, pos, arch), _rotate(k, pos, arch)
     if policy.mesh is not None:
@@ -241,7 +242,8 @@ def attention_decode(h: torch.Tensor, p: DenseBlock, arch: ArchConfig,
     policy = policy or NULL_POLICY
     pos = torch.full((h.shape[0], 1), cache_len, dtype=torch.int32,
                      device=h.device)
-    q = decode_qkv(h, p, arch, k_cache, v_cache, pos, cache_len, policy)
+    q = decode_qkv(h, p, arch, k_cache, v_cache, pos, cache_len, policy,
+                   impl)
     attend = _attend(impl, ops.decode_attention, ref.decode_attention_ref,
                      policy.mesh is not None)
     return attention_out(attend(q, k_cache, v_cache, cache_len + 1,
@@ -249,9 +251,11 @@ def attention_decode(h: torch.Tensor, p: DenseBlock, arch: ArchConfig,
 
 
 def mlp(h: torch.Tensor, p: DenseBlock, arch: ArchConfig,
-        policy: Optional[ShardingPolicy] = None) -> torch.Tensor:
+        policy: Optional[ShardingPolicy] = None,
+        impl: str = "kernel") -> torch.Tensor:
+    """The gated MLP on the normalised h (``impl`` routes the norm)."""
     policy = policy or NULL_POLICY
-    hn = layers.rms_norm(h, p.mlp_norm, arch.norm_eps)
+    hn = layers.rms_norm(h, p.mlp_norm, arch.norm_eps, impl)
     return layers.gated_mlp(
         hn, p.wg, p.wu, p.wd, arch.mlp_activation,
         pin=lambda g: policy.pin(g, "batch", "seq", "ff"))
@@ -264,7 +268,7 @@ def dense_block_full(h: torch.Tensor, p: DenseBlock, arch: ArchConfig,
     policy = policy or NULL_POLICY
     a, kv = attention_full(h, p, arch, positions, impl, policy)
     h = h + a
-    h = h + mlp(h, p, arch, policy)
+    h = h + mlp(h, p, arch, policy, impl)
     return policy.pin(h, "batch", "seq", None), kv
 
 
@@ -288,4 +292,4 @@ def dense_block_decode(h: torch.Tensor, p: DenseBlock, arch: ArchConfig,
     policy = policy or NULL_POLICY
     h = residual(h, attention_decode(h, p, arch, k_cache, v_cache, cache_len,
                                      impl, policy), policy)
-    return residual(h, mlp(h, p, arch, policy), policy)
+    return residual(h, mlp(h, p, arch, policy, impl), policy)

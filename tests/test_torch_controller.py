@@ -355,9 +355,11 @@ def test_chip_smoke_control_phase_rehearsal(smoke, monkeypatch, fault,
     from repro_torch.kernels import decode_attention as dmod
     from repro_torch.kernels import flash_attention as fmod
     from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import rms_norm as nmod
     monkeypatch.setattr(ops, "_on_cuda", lambda x: True)
     monkeypatch.setattr(fmod, "flash_attention",
                         _counting(fmod, ref.flash_attention_ref))
+    monkeypatch.setattr(nmod, "rms_norm", _counting(nmod, ref.rms_norm_ref))
     monkeypatch.setattr(dmod, "decode_attention",
                         _counting(dmod, ref.decode_attention_ref))
     monkeypatch.setattr(torch.cuda, "reset_peak_memory_stats",

@@ -535,10 +535,12 @@ def dryrun_phase(monkeypatch):
     from repro_torch.kernels import decode_attention as dmod
     from repro_torch.kernels import flash_attention as fmod
     from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import rms_norm as nmod
 
     full = configs.get_arch
     monkeypatch.setattr(configs, "get_arch", lambda n: full(n).reduced())
     monkeypatch.setattr(ops, "_on_cuda", lambda x: True)
+    monkeypatch.setattr(nmod, "rms_norm", _counting(nmod, ref.rms_norm_ref))
     monkeypatch.setattr(fmod, "flash_attention",
                         _counting(fmod, ref.flash_attention_ref))
     monkeypatch.setattr(dmod, "decode_attention",

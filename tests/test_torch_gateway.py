@@ -677,8 +677,10 @@ def test_chip_smoke_gateway_phase_rehearsal(smoke, monkeypatch, fault,
     from repro_torch.kernels import decode_attention as dmod
     from repro_torch.kernels import flash_attention as fmod
     from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import rms_norm as nmod
     monkeypatch.setattr(chip_smoke, "GATEWAY_S", REHEARSAL_S)
     monkeypatch.setattr(ops, "_on_cuda", lambda x: True)
+    monkeypatch.setattr(nmod, "rms_norm", _counting(nmod, ref.rms_norm_ref))
     monkeypatch.setattr(fmod, "flash_attention",
                         _counting(fmod, ref.flash_attention_ref))
     decode = _counting(dmod, ref.decode_attention_ref)

@@ -422,6 +422,7 @@ def test_chip_smoke_moe_phase_rehearsal(monkeypatch, capsys, fault,
     from repro_torch.kernels import decode_attention as dmod
     from repro_torch.kernels import flash_attention as fmod
     from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import rms_norm as nmod
 
     def reduced(torch_, name, num_layers=None, dtype=None, seed=0):
         arch = _arch(ARCHS, "scout" if name == SCOUT else "interleave")
@@ -436,6 +437,7 @@ def test_chip_smoke_moe_phase_rehearsal(monkeypatch, capsys, fault,
             return ref.flash_attention_ref(q, k, v, causal=False)
     monkeypatch.setattr(chip_smoke, "_model", reduced)
     monkeypatch.setattr(ops, "_on_cuda", lambda x: True)
+    monkeypatch.setattr(nmod, "rms_norm", _counting(nmod, ref.rms_norm_ref))
     monkeypatch.setattr(fmod, "flash_attention", _counting(fmod, flash))
     monkeypatch.setattr(dmod, "decode_attention", ref.decode_attention_ref
                         if fault == "decode_uncounted"
@@ -457,7 +459,8 @@ def test_chip_smoke_moe_phase_rehearsal(monkeypatch, capsys, fault,
     assert launches[MAVERICK] == {"flash_attention": 4, "decode_attention":
                                   4 * (chip_smoke.SERVE_NEW - 1),
                                   "ssd_scan": 0, "quant_matmul": 0,
-                                  "ssd_step": 0}
+                                  "ssd_step": 0, "rms_norm":
+                                  (2 * 4 + 1) * chip_smoke.SERVE_NEW}
     out = capsys.readouterr().out
     for phase in ("moe_prefill", "moe_serve_drops", "profile_regions",
                   "moe"):

@@ -308,6 +308,7 @@ def seqpar_phase(monkeypatch):
         sys.path.insert(0, root)
     import chip_smoke
     from repro_torch.kernels import flash_attention as fmod
+    from repro_torch.kernels import rms_norm as nmod
     from repro_torch.models import Model
 
     def counting(mod, attr, plain, counts=lambda *a: True):
@@ -323,6 +324,8 @@ def seqpar_phase(monkeypatch):
     monkeypatch.setattr(ops, "_on_cuda", lambda x: True)
     monkeypatch.setattr(fmod, "flash_attention",
                         counting(fmod, "launches", ref.flash_attention_ref))
+    monkeypatch.setattr(nmod, "rms_norm",
+                        counting(nmod, "launches", ref.rms_norm_ref))
     monkeypatch.setattr(dmod, "decode_attention",
                         counting(dmod, "launches", ref.decode_attention_ref))
     monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **kw: None)
@@ -340,12 +343,14 @@ def seqpar_phase(monkeypatch):
 def test_chip_smoke_seqpar_phase_rehearsal(seqpar_phase, capsys):
     """Four shards of the 1024-position cache at cache_len 513..528:
     shards 0 and 1 full, 2 partly filled, 3 empty, so 3 partial launches
-    a layer and step; 4 flash launches a layer; the logits those of the
-    whole sequence."""
+    a layer and step; 4 flash launches a layer; two norms a layer and the
+    final one in the prefill and each of the 16 steps; the logits those
+    of the whole sequence."""
     got = seqpar_phase()
     layers = ARCHS["qwen2-7b"].reduced().num_layers
     assert got == {"flash_attention": 4 * layers, "decode_attention": 0,
-                   "decode_attention_partial": 3 * 16 * layers}
+                   "decode_attention_partial": 3 * 16 * layers,
+                   "rms_norm": (2 * layers + 1) * (1 + 16)}
     phase = next(r for r in map(json.loads,
                                 capsys.readouterr().out.splitlines())
                  if r.get("phase") == "seqpar")

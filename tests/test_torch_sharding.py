@@ -833,6 +833,7 @@ def shard_phase(monkeypatch):
     import repro_torch.configs as configs
     from repro_torch.kernels import decode_attention as dmod
     from repro_torch.kernels import flash_attention as fmod
+    from repro_torch.kernels import rms_norm as nmod
     from repro_torch.kernels import ssd_scan as smod
     from repro_torch.kernels import ssd_step as step_mod
 
@@ -854,6 +855,7 @@ def shard_phase(monkeypatch):
             *a, init_state=init_state)))
     monkeypatch.setattr(step_mod, "ssd_step",
                         _counting(step_mod, ref.ssd_step_ref))
+    monkeypatch.setattr(nmod, "rms_norm", _counting(nmod, ref.rms_norm_ref))
     for name in ("synchronize", "reset_peak_memory_stats", "empty_cache"):
         monkeypatch.setattr(torch.cuda, name, lambda *a, **kw: None)
     monkeypatch.setattr(torch.cuda, "max_memory_allocated",

@@ -20,6 +20,7 @@ from repro_torch.configs import ARCHS, get_arch  # noqa: E402
 from repro_torch.kernels import decode_attention as dmod  # noqa: E402
 from repro_torch.kernels import flash_attention as fmod  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
+from repro_torch.kernels import rms_norm as nmod  # noqa: E402
 from repro_torch.kernels import ssd_scan as smod  # noqa: E402
 from repro_torch.kernels import ssd_step as step_mod  # noqa: E402
 from repro_torch.models import Model  # noqa: E402
@@ -364,7 +365,8 @@ def test_ssm_step_routes_count_the_plain_step_off_the_card(monkeypatch):
     plain step for CPU tensors and for ``impl="plain"``; with tensors
     taken for the card's (``ops._on_cuda`` forced), ``impl="kernel"``
     reaches the kernel wrapper once a layer and step (a counting plain
-    stand-in here) and ``impl="plain"`` never does."""
+    stand-in here, and the norms' wrapper a plain one) and
+    ``impl="plain"`` never does."""
     from repro_torch.obs.tracing import Tracer
     arch = ARCHS["mamba2-130m"].reduced()
     L, B, S = arch.num_layers, 2, 5
@@ -395,6 +397,7 @@ def test_ssm_step_routes_count_the_plain_step_off_the_card(monkeypatch):
 
     monkeypatch.setattr(ops, "_on_cuda", lambda x: True)
     monkeypatch.setattr(step_mod, "ssd_step", kernel)
+    monkeypatch.setattr(nmod, "rms_norm", ref.rms_norm_ref)
     assert step("kernel") == ({"kernel": L, "plain": 0}, {"kernel"}, L)
     assert len(launched) == L
     assert step("plain") == ({"kernel": 0, "plain": L}, {"plain"}, L)

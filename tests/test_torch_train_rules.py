@@ -12,6 +12,7 @@ torch = pytest.importorskip("torch")
 from repro_torch.configs import ARCHS  # noqa: E402
 from repro_torch.kernels import flash_attention as fmod  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
+from repro_torch.kernels import rms_norm as nmod  # noqa: E402
 from repro_torch.models import Model  # noqa: E402
 from repro_torch.training import data  # noqa: E402
 from repro_torch.training import optimizer as opt  # noqa: E402
@@ -156,9 +157,11 @@ def test_float64_model_is_the_yardstick_of_fp32_grads(granite):
 
 
 def test_kernels_refuse_grad_on_the_card(monkeypatch, granite):
-    """With tensors taken for CUDA ones, the attention wrapper refuses an
-    input that requires grad under grad mode (the kernel has no backward)
-    and launches under no_grad, as serving does."""
+    """With tensors taken for CUDA ones, the kernels refuse an input that
+    requires grad under grad mode (the kernel has no backward; the first
+    norm refuses before any attention launches) and the attention
+    launches under no_grad, as serving does (the norms' wrapper a plain
+    stand-in here)."""
     arch, dcfg = granite
     monkeypatch.setattr(ops, "_on_cuda", lambda x: True)
     launched = []
@@ -168,6 +171,7 @@ def test_kernels_refuse_grad_on_the_card(monkeypatch, granite):
         return ref.flash_attention_ref(q, k, v, **kw)
 
     monkeypatch.setattr(fmod, "flash_attention", kernel)
+    monkeypatch.setattr(nmod, "rms_norm", ref.rms_norm_ref)
     model = Model(arch, device="cpu", dtype=torch.float32)
     model.init(torch.Generator().manual_seed(0))
     model.requires_grad_(True)
